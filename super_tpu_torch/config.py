@@ -1,0 +1,184 @@
+"""Typed configuration of the PyTorch port (counterpart of
+super_tpu/config.py).
+
+The field names, defaults and nesting are those of the JAX package's
+configuration, so a config crosses between the two packages as
+``dataclasses.asdict`` output (:meth:`SuPerConfig.from_dict`).  The port keeps
+its own copy: it imports nothing of ``super_tpu``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class LossConfig:
+    """Residual-stack toggles and weights."""
+
+    sf_point_plane: bool = True
+    sf_point_plane_weight: float = 1.0
+    sf_point_plane_max: float = -1.0
+    huber_th: float = -1.0
+    mesh_arap: bool = True
+    mesh_arap_weight: float = 10.0
+    mesh_rot: bool = True
+    mesh_rot_weight: float = 1.0
+    mesh_face: bool = False
+    mesh_face_weight: float = 1.0
+    sf_corr: bool = False
+    sf_corr_weight: float = 1e-3
+    sf_corr_loss_type: str = "point-point"
+    sf_corr_match_renderimg: bool = False
+    render_loss: bool = False
+    render_loss_weight: float = 1e-4
+    sf_hard_seg_point_plane: bool = False
+    sf_soft_seg_point_plane: bool = False
+    sf_bn_morph: bool = False
+    sf_bn_morph_weight: float = 0.1
+
+
+@dataclasses.dataclass(frozen=True)
+class SolverConfig:
+    """Per-frame warp-field solver settings.
+
+    The port runs the LM path with ``association="per_frame"``,
+    ``lm_schedule="deferred"``, ``linear_solver="pairs_fused"`` and the tuple
+    assembly; the other values of these fields belong to later slices and
+    raise where they would be taken.
+    """
+
+    use_derived_gradient: bool = True
+    optimizer: str = "SGD"
+    learning_rate: float = 5e-5
+    num_iterations: int = 10
+    lm_damping_init: float = 10.0
+    lm_damping_factor: float = 7.5
+    lm_schedule: str = "deferred"
+    lm_hypotheses: int = 1
+    linear_solver: str = "cholesky"
+    pcg_iterations: int = 64
+    pcg_tol: float = 1e-12
+    assembly_chunk: int = 65536
+    moving_premix: bool = False
+    assembly_mode: str = "tuple"
+    assembly_tuple_cap: int = 4096
+    assembly_pad_group: int = 32
+    assembly_combine: str = "matmul"
+    assembly_expand: str = "pairs"
+    assembly_pair_cap: int = 4096
+    assembly_backend: str = "xla"
+    jtj_dtype: str = "f32"
+    # "bf16": the pair-block sums round their values to bf16 and sum in f32.
+    gram_sum_dtype: str = "f32"
+    jac_dtype: str = "f32"
+    association: str = "per_iteration"
+
+
+@dataclasses.dataclass(frozen=True)
+class CapacityConfig:
+    """Fixed capacities of the mask-carried state."""
+
+    surfel_capacity: int = 1 << 17
+    node_capacity: int = 512
+    edge_capacity: int = 2048
+    triangle_capacity: int = 1024
+    new_surfel_capacity: int = 16384
+    proj_map_depth: int = 4
+    dup_pixel_cap: Optional[int] = None
+    track_capacity: int = 20
+
+
+@dataclasses.dataclass(frozen=True)
+class SuPerConfig:
+    """Top-level pipeline config."""
+
+    method: str = "super"
+    data: str = "superv1"
+    height: int = 480
+    width: int = 640
+    num_ed_neighbors: int = 4
+    num_neighbors: int = 4
+    th_dist: float = 0.1
+    th_cosine_ang: float = 0.4
+    th_time_steps: int = 30
+    disable_removing_unstable_surfels: bool = False
+    disable_merging_new_surfels: bool = False
+    disable_merging_exist_surfels: bool = False
+    disable_adding_new_surfels: bool = False
+    mesh_step_size: int = 30
+    normal_model: str = "8neighbors"
+    depth_model: Optional[str] = None
+    load_depth: bool = True
+    min_depth: float = 0.1
+    max_depth: float = 80.0
+    depth_width_range: Tuple[float, float] = (0.02, 0.98)
+    dilate_invalid_kernel: int = 5
+    depth_filter_kernel_size: int = -1
+    post_process: bool = False
+    load_valid_mask: bool = False
+    del_seg_classes: Tuple[int, ...] = ()
+    disable_ssim_conf: bool = True
+    num_classes: int = 3
+    hard_seg: bool = False
+    load_seg: bool = False
+    seg_model: Optional[str] = None
+    renderer_rad: float = 2e-4
+    proj_map_mode: str = "sort"
+    losses: LossConfig = dataclasses.field(default_factory=LossConfig)
+    solver: SolverConfig = dataclasses.field(default_factory=SolverConfig)
+    capacity: CapacityConfig = dataclasses.field(
+        default_factory=CapacityConfig)
+    save_sample_freq: int = 10
+    tracking_gt_file: Optional[str] = None
+    edge_ids: Tuple[int, ...] = ()
+
+    @property
+    def image_pixels(self) -> int:
+        return self.height * self.width
+
+    def replace(self, **kw) -> "SuPerConfig":
+        return dataclasses.replace(self, **kw)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "SuPerConfig":
+        """Build from ``dataclasses.asdict`` of either package's config."""
+        nested = {"losses": LossConfig, "solver": SolverConfig,
+                  "capacity": CapacityConfig}
+        kw = {}
+        for f in dataclasses.fields(cls):
+            if f.name not in d:
+                continue
+            v = d[f.name]
+            if f.name in nested:
+                v = nested[f.name](**v)
+            elif isinstance(v, list):
+                v = tuple(v)
+            kw[f.name] = v
+        return cls(**kw)
+
+
+def lm_workload_config(height: int = 480, width: int = 640,
+                       mesh_step: int = 30) -> SuPerConfig:
+    """The LM tracking workload of the JAX package's bench (bench.py,
+    build_workload, non-semantic branch, node_capacity <= 512) with the
+    tuple-Gram assembly backend: at 480 x 640 and mesh step 30, 336 ED
+    nodes in a capacity of 384 and 425,984 surfel slots."""
+    nodes = len(range(0, width - 1, mesh_step)) * \
+        len(range(0, height - 1, mesh_step))
+    node_cap = max(64, -(-nodes // 64) * 64)
+    if node_cap > 512:
+        raise NotImplementedError("the dense-graph workload is not ported")
+    chunk = 32768
+    surfel_cap = -(-int(1.25 * height * width) // chunk) * chunk + chunk
+    return SuPerConfig(
+        height=height, width=width, mesh_step_size=mesh_step,
+        capacity=CapacityConfig(
+            surfel_capacity=surfel_cap, node_capacity=node_cap,
+            edge_capacity=4 * node_cap, triangle_capacity=2 * node_cap,
+            new_surfel_capacity=8192),
+        solver=SolverConfig(
+            association="per_frame", assembly_pad_group=64,
+            linear_solver="pairs_fused", pcg_iterations=32,
+            gram_sum_dtype="bf16", assembly_backend="pallas"))

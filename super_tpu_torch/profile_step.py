@@ -1,0 +1,158 @@
+"""Where the time of the port's main path goes, on one CUDA card.
+
+    python -m super_tpu_torch.profile_step [--frames 4] [--seed 0]
+
+Runs the LM tracking workload at 480 x 640 (config.lm_workload_config):
+frame 0 initialises, one frame warms up, one runs under CUDA's sync debug
+mode to find any host sync in the step, then ``--frames`` frames run with
+tracing off, each timed on the host clock around a synchronised step, and
+the same number of frames under ``torch.profiler``.  Prints one JSON line:
+the card, ms per frame untraced, and from the traced run the host and
+device ms per frame of each ``step.*`` and ``lm.*`` range, the kernels'
+device ms per frame and busy share of the traced window, and the kernels
+with the most device time.
+"""
+
+from __future__ import annotations
+
+import argparse
+import bisect
+import collections
+import json
+import statistics
+import subprocess
+import time
+import traceback
+import warnings
+
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+
+import super_tpu_torch  # noqa: F401  (TF32 off)
+from super_tpu_torch.config import lm_workload_config
+from super_tpu_torch.core.preprocess import preprocess_frame
+from super_tpu_torch.core.tracker import init_tracker, track_step
+from super_tpu_torch.data.synthetic import default_intrinsics, generate
+
+RANGES = ("step.prepare_lm", "step.lm_solve", "step.apply_deformation",
+          "step.fuse_frame", "step.prune", "lm.associate", "lm.assemble",
+          "lm.solve", "lm.final_cost")
+
+
+def _count_syncs(cfg, intr, state, frame):
+    """One step under CUDA's sync debug mode: where it waits for the card
+    (the innermost frames of this package, for each synchronising call)."""
+    sites = []
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" in str(message):
+            ours = [f"{f.filename.rsplit('/', 2)[-1]}:{f.lineno}"
+                    for f in traceback.extract_stack()[:-1]
+                    if "super_tpu_torch" in f.filename]
+            sites.append(ours[-3:] + [f"{filename}:{lineno}"])
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")   # (itself warns once)
+        warnings.showwarning = hook
+        try:
+            state, _ = track_step(cfg, intr, state, frame)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return state, sites
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--frames", type=int, default=4)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_step: no CUDA device")
+    dev = torch.device("cuda", 0)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+
+    cfg = lm_workload_config(480, 640, 30)
+    intr = default_intrinsics(cfg.height, cfg.width, device=dev)
+    n = 3 + 2 * args.frames
+    seq = generate(n, cfg.height, cfg.width, intr=intr, seed=args.seed)
+    colors = np.ascontiguousarray(seq.colors.transpose(0, 3, 1, 2))
+    frames = [preprocess_frame(cfg, intr, seq.depths[t], colors[t], float(t),
+                               device=dev) for t in range(n)]
+    state = init_tracker(cfg, frames[0])
+    state, _ = track_step(cfg, intr, state, frames[1])      # warm-up
+    state, syncs = _count_syncs(cfg, intr, state, frames[2])
+
+    untraced = []
+    for f in frames[3:3 + args.frames]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = track_step(cfg, intr, state, f)
+        torch.cuda.synchronize()
+        untraced.append((time.perf_counter() - t0) * 1e3)
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for f in frames[3 + args.frames:]:
+            state, _ = track_step(cfg, intr, state, f)
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+
+    # Device-side events: the kernels, and one interval per range on the
+    # device timeline.  A kernel counts toward a range when it ran inside
+    # that interval; this also catches the port's own kernels, which are
+    # launched through ctypes and so have no PyTorch op as parent.
+    dev_events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+    kernels = [(e.time_range.start, e.time_range.end, e.name)
+               for e in dev_events if e.name not in RANGES]
+    kernels.sort()
+    starts = [k[0] for k in kernels]
+    per = 1e3 * args.frames
+    ranges = {}
+    for name in RANGES:
+        host = [e for e in prof.events()
+                if e.device_type == DeviceType.CPU and e.name == name]
+        dev_ms = 0.0
+        for e in dev_events:
+            if e.name != name:
+                continue
+            lo = bisect.bisect_left(starts, e.time_range.start)
+            for k0, k1, _ in kernels[lo:]:
+                if k0 >= e.time_range.end:
+                    break
+                if k1 <= e.time_range.end:
+                    dev_ms += k1 - k0
+        ranges[name] = dict(
+            calls_per_frame=len(host) / args.frames,
+            host_ms=sum(e.cpu_time_total for e in host) / per,
+            device_ms=dev_ms / per)
+    by_name = collections.defaultdict(lambda: [0, 0.0])
+    for k0, k1, kname in kernels:
+        by_name[kname][0] += 1
+        by_name[kname][1] += k1 - k0
+    device_ms = sum(k1 - k0 for k0, k1, _ in kernels) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
+    print(json.dumps(dict(
+        card=card, frames=args.frames, seed=args.seed,
+        host_syncs_per_frame=len(syncs), host_sync_sites=syncs[:10],
+        untraced_ms_per_frame=untraced,
+        untraced_median_ms=statistics.median(untraced),
+        traced_ms_per_frame=window_ms / args.frames,
+        device_ms_per_frame=device_ms / args.frames,
+        device_busy_share_traced=device_ms / window_ms,
+        ranges=ranges,
+        top_kernels=[dict(name=kname[:90], calls_per_frame=c / args.frames,
+                          device_ms_per_frame=t / per)
+                     for kname, (c, t) in top])))
+
+
+if __name__ == "__main__":
+    main()
