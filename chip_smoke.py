@@ -4,10 +4,20 @@
     python3 chip_smoke.py
 
 Builds the port's hand-written CUDA kernels from super_tpu_torch/csrc, holds
-each against its plain PyTorch version on the card at the shapes of the main
-path, then drives the main path -- the LM tracking step at 480 x 640
-(synthetic frames -> preprocess_frame -> init_tracker -> track_step) -- and
-checks that it went through the kernels and that its results are right.
+each against its plain PyTorch version on the card at the shapes of the
+paths that run it, then drives three paths of the LM tracking step at
+480 x 640 (synthetic frames -> preprocess_frame -> init_tracker ->
+track_step) and checks that each went through its kernels and that its
+results are right:
+
+- main: the headline workload, ``lm_workload_config(480, 640, 30)``
+  (J = 384, pair-sparse CG by K1, tuple Grams by K2);
+- dense: the dense ED graph, ``lm_workload_config(480, 640, 16)``
+  (J = 1216, pair-sparse CG by K1b, K2);
+- solvers: the headline workload with the dense-matrix solvers,
+  ``linear_solver="pcg_pallas"`` (K3, K2), then ``"cholesky"`` and ``"pcg"``.
+
+Launch counts are set to 0 just before a path runs and read just after.
 Each phase prints one JSON line; any failure raises and exits non-zero.  The
 run ends with a ``{"kernels": [...]}`` summary line, the card's name and
 power limit as nvidia-smi reports them, and ``{"ok": true, "device": ...}``.
@@ -29,7 +39,9 @@ import torch
 H100_HBM_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
 H100_F32_FLOP_PER_S = 67e12        # f32 outside the tensor cores
 MAIN_FRAMES = 5                    # tracked frames after frame 0
+PATH_FRAMES = 3                    # tracked frames of the dense and solvers paths
 SEED = 0
+SOURCES = ("pairs_cg", "tuple_gram", "dense_cg")   # csrc/<name>.cu
 
 
 def emit(obj):
@@ -68,7 +80,7 @@ def phase_build():
     from super_tpu_torch.kernels import build
 
     t0 = time.perf_counter()
-    logs = build.build(["pairs_cg", "tuple_gram"])   # nvcc runs in parallel
+    logs = build.build(SOURCES)   # one nvcc per source, all at once
     ptxas = {name: [ln.strip() for ln in log.splitlines()
                     if "registers" in ln or "spill" in ln]
              for name, log in logs.items()}
@@ -76,20 +88,9 @@ def phase_build():
           "arch": "sm_90a", "ptxas": ptxas})
 
 
-def phase_k1(dev):
-    """K1 against its plain version at the headline shapes (J = 384,
-    P = 4096, 32 iterations) on a seeded well-posed pair system."""
-    from super_tpu_torch.core.lm import example_pair_system, pairs_band_system
-    from super_tpu_torch.kernels.pcg import pairs_cg, pairs_cg_plain
-
-    j, p, iters = 384, 4096, 32
-    layout, acc, rhs, u, x0 = example_pair_system(j, p, SEED, device=dev)
-    args = pairs_band_system(layout, acc, rhs, u, j, x0)
-    x_k = pairs_cg(*args, iterations=iters)
-    x_p = pairs_cg_plain(*args, iterations=iters)
-    torch.cuda.synchronize()
-
-    # The damped system as a dense matrix, for the residuals.
+def _pair_matrix(layout, acc, u, j, dev):
+    """The damped pair system S + S^T + u I as a dense f64 matrix."""
+    p = acc.shape[0]
     n12 = (layout.pair_dest.long() // 7)
     dense = torch.zeros((7 * j + 7, 7 * j + 7), dtype=torch.float64,
                         device=dev)
@@ -98,8 +99,25 @@ def phase_k1(dev):
     dense.index_put_((rows.expand(p, 7, 7), cols.expand(p, 7, 7)),
                      acc.reshape(p, 7, 7).double(), accumulate=True)
     dense = dense[:7 * j, :7 * j]
-    a = dense + dense.T + float(u) * torch.eye(7 * j, dtype=torch.float64,
-                                              device=dev)
+    return dense + dense.T + float(u) * torch.eye(7 * j, dtype=torch.float64,
+                                                  device=dev)
+
+
+def _pair_cg_phase(dev, name, j, p, kernel, plain, round_acc):
+    """A pair-sparse CG kernel (K1 or K1b) against its plain version on a
+    seeded well-posed pair system of J nodes and P pairs, 32 iterations."""
+    from super_tpu_torch.core.lm import example_pair_system, pairs_band_system
+
+    iters = 32
+    layout, acc, rhs, u, x0 = example_pair_system(j, p, SEED, device=dev)
+    args = pairs_band_system(layout, acc, rhs, u, j, x0)
+    x_k = kernel(*args, iterations=iters)
+    x_p = plain(*args, iterations=iters)
+    torch.cuda.synchronize()
+
+    # The system each version solves (K1b's with its blocks in bf16), for
+    # the residuals.
+    a = _pair_matrix(layout, round_acc(acc), u, j, dev)
     b = rhs.double()
 
     def resid(x_fm):
@@ -109,27 +127,34 @@ def phase_k1(dev):
     err = float(torch.max(torch.abs(x_k - x_p)))
     rel = err / float(torch.max(torch.abs(x_p)))
     res_k, res_p = resid(x_k), resid(x_p)
-    ms = cuda_ms(lambda: pairs_cg(*args, iterations=iters), reps=50)
-    plain_ms = cuda_ms(lambda: pairs_cg_plain(*args, iterations=iters),
-                       reps=5)
+    del a
+    ms = cuda_ms(lambda: kernel(*args, iterations=iters), reps=20)
+    plain_ms = cuda_ms(lambda: plain(*args, iterations=iters), reps=3)
     # Work of this run: each valid pair costs two 7x7 block products per
     # matvec; the preconditioner one per node; dots and updates ~10 per
-    # vector entry.  Bytes: every input read once, the solution written.
+    # vector entry.  Bytes the function needs, each read once: the 49 used
+    # rows of both band tables for the valid pairs (bf16 in K1b, which
+    # computes on the rounded blocks), n1 and n2, the 49 used rows of the
+    # preconditioner table, b, x0 and u; the solution written.
     n1, n2 = args[2], args[3]
     p_valid = int(((n1 < j) & (n2 < j)).sum())
+    band = 2 if name == "k1b" else 4
     flops = (iters + 1) * (2 * 2 * 49 * p_valid + 2 * 49 * j + 10 * 7 * j)
-    nbytes = sum(t.numel() * t.element_size() for t in args) + 7 * j * 4
+    nbytes = (2 * 49 * p_valid * band + 2 * p * 4 + 49 * j * 4
+              + 3 * 7 * j * 4 + 4)
     b_ms, b_by = bound(nbytes, flops)
-    # What the design reads from L2 instead: both pair tables per matvec and
-    # the preconditioner per iteration (the kernel reads 49 of 64 band rows).
-    l2_bytes = (iters + 1) * 4 * 49 * (2 * p_valid + j)
+    # What the design reads from L2 instead, per matvec: both pair tables
+    # and the per-pair products written and read back (8 floats a pair and
+    # table); per iteration the preconditioner.
+    l2_bytes = (iters + 1) * (p_valid * (2 * 49 * band + 2 * 2 * 8 * 4)
+                              + 4 * 49 * j)
     # The kernel is right if it agrees with the plain recurrence to f32
     # reassociation (32 iterations): 1e-4 relative to |x|; and both solve
     # the system to the same residual.
     if not (math.isfinite(rel) and rel < 1e-4 and res_k < 2 * res_p + 1e-5):
-        raise RuntimeError(f"K1 disagrees: rel {rel}, residuals {res_k} "
+        raise RuntimeError(f"{name} disagrees: rel {rel}, residuals {res_k} "
                            f"vs {res_p}")
-    out = dict(phase="k1", j=j, p=p, iterations=iters, max_abs_err=err,
+    out = dict(phase=name, j=j, p=p, iterations=iters, max_abs_err=err,
                max_rel_err=rel, residual_kernel=res_k, residual_plain=res_p,
                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                bytes=nbytes, flops=flops, l2_bytes=l2_bytes,
@@ -138,8 +163,83 @@ def phase_k1(dev):
     return out
 
 
-def phase_k2(dev, cfg, ctx, assoc):
-    """K2 against its plain version on the main path's own rows (a real
+def phase_k1(dev):
+    """K1 at the headline shapes: J = 384, P = 4096."""
+    from super_tpu_torch.kernels.pcg import pairs_cg, pairs_cg_plain
+
+    return _pair_cg_phase(dev, "k1", 384, 4096, pairs_cg, pairs_cg_plain,
+                          lambda acc: acc)
+
+
+def phase_k1b(dev):
+    """K1b at the dense graph's shapes: J = 1216, P = 19,456."""
+    from super_tpu_torch.kernels.pcg import (
+        pairs_cg_chunked,
+        pairs_cg_chunked_plain,
+        uses_chunked,
+    )
+
+    if not uses_chunked(1216, 19456):
+        raise RuntimeError("the dense graph's pair system must take K1b")
+    return _pair_cg_phase(
+        dev, "k1b", 1216, 19456, pairs_cg_chunked, pairs_cg_chunked_plain,
+        lambda acc: acc.to(torch.bfloat16).to(torch.float32))
+
+
+def phase_k3(dev):
+    """K3 against its plain version at path B's shapes (J = 384: dim
+    2688, padded to 2816 in the wrapper), 32 iterations, on a seeded
+    normal-equation-shaped system (the damped pair system as a dense
+    matrix) block-preconditioned as the LM step does it."""
+    from super_tpu_torch.core.lm import block_precondition, \
+        example_pair_system
+    from super_tpu_torch.kernels.pcg import dense_cg, dense_cg_plain
+
+    j, iters = 384, 32
+    layout, acc, rhs, u, _ = example_pair_system(j, 4096, SEED + 1,
+                                                 device=dev)
+    a64 = _pair_matrix(layout, acc, u, j, dev)
+    a_hat, b_hat, _ = block_precondition(a64.float(), rhs, j)
+    x_k = dense_cg(a_hat, b_hat, iterations=iters)
+    x_p = dense_cg_plain(a_hat, b_hat, iterations=iters)
+    torch.cuda.synchronize()
+    a_hat64, b64 = a_hat.double(), b_hat.double()
+
+    def resid(x):
+        return float(torch.linalg.norm(a_hat64 @ x.double() - b64)
+                     / torch.linalg.norm(b64))
+
+    err = float(torch.max(torch.abs(x_k - x_p)))
+    rel = err / float(torch.max(torch.abs(x_p)))
+    res_k, res_p = resid(x_k), resid(x_p)
+    ms = cuda_ms(lambda: dense_cg(a_hat, b_hat, iterations=iters), reps=50)
+    plain_ms = cuda_ms(lambda: dense_cg_plain(a_hat, b_hat,
+                                              iterations=iters), reps=10)
+    dim = a_hat.shape[0]
+    n = -(-dim // 256) * 256
+    # Work: one matvec (2 dim^2) and ~10 operations per entry per
+    # iteration.  Bytes: the matrix and b read once, x written.  From L2
+    # the kernel reads the padded matrix once per iteration.
+    flops = iters * (2 * dim * dim + 10 * dim)
+    nbytes = (dim * dim + 2 * dim) * 4
+    b_ms, b_by = bound(nbytes, flops)
+    l2_bytes = iters * n * n * 4
+    # f32 CG, 32 iterations, sums in other orders: 1e-4 relative to |x|,
+    # and the same residual.
+    if not (math.isfinite(rel) and rel < 1e-4 and res_k < 2 * res_p + 1e-5):
+        raise RuntimeError(f"K3 disagrees: rel {rel}, residuals {res_k} "
+                           f"vs {res_p}")
+    out = dict(phase="k3", j=j, dim=dim, dim_padded=n, iterations=iters,
+               max_abs_err=err, max_rel_err=rel, residual_kernel=res_k,
+               residual_plain=res_p, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+               bound_by=b_by, bytes=nbytes, flops=flops, l2_bytes=l2_bytes,
+               l2_gb_per_s=l2_bytes / ms / 1e6)
+    emit(out)
+    return out
+
+
+def phase_k2(dev, cfg, ctx, assoc, name="k2"):
+    """K2 against its plain version on a path's own rows (a real
     block_tuple from build_tuple_layout on synthetic 480 x 640 frames)."""
     from super_tpu_torch.core.losses import data_rows
     from super_tpu_torch.geometry.quaternion import identity_dq
@@ -174,7 +274,10 @@ def phase_k2(dev, cfg, ctx, assoc):
     if not (math.isfinite(err) and err <= 1e-5 * scale and sym == 0.0):
         raise RuntimeError(f"K2 disagrees: err {err} (scale {scale}), "
                            f"asymmetry {sym}")
-    out = dict(phase="k2", np=np_cap, tuples=t_cap,
+    # The pair table this frame fills (the pair CG's P in use).
+    j_cap = cfg.capacity.node_capacity
+    pairs = int((ctx.layout.pair_dest[:, 0] < 7 * j_cap).sum())
+    out = dict(phase=name, np=np_cap, tuples=t_cap, pairs_in_use=pairs,
                blocks=int(bt.numel()), max_abs_err=err, scale=scale,
                asymmetry=sym, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                bound_by=b_by, bytes=nbytes, flops=flops)
@@ -218,25 +321,24 @@ def _track(cfg, intr, frames, timed=False):
     return state, outs, times
 
 
-def phase_main(dev):
-    """The main path at 480 x 640: counts zeroed before, read after."""
-    from super_tpu_torch.config import lm_workload_config
-    from super_tpu_torch.data.synthetic import default_intrinsics
-    from super_tpu_torch.kernels.gram import tuple_gram
-    from super_tpu_torch.kernels.pcg import pairs_cg
+def _launch_counts():
+    from super_tpu_torch.kernels import gram, pcg
 
-    cfg = lm_workload_config(480, 640, 30)
-    intr = default_intrinsics(cfg.height, cfg.width, device=dev)
-    t0 = time.perf_counter()
-    frames = _frames(cfg, intr, MAIN_FRAMES + 1, dev)
-    torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
+    return {"pairs_cg": pcg.pairs_cg, "pairs_cg_chunked": pcg.pairs_cg_chunked,
+            "tuple_gram": gram.tuple_gram, "dense_cg": pcg.dense_cg}
 
-    pairs_cg.launches = 0
-    tuple_gram.launches = 0
+
+def _run_path(name, cfg, intr, frames, per_trip):
+    """Track ``frames`` (frame 0 initialises) with every step under sync
+    debug mode "error", the launch counts zeroed just before and read just
+    after.  ``per_trip``: the kernels that must launch once per LM trip;
+    every other kernel must not launch."""
+    wrappers = _launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers.values():
+        w.launches = 0
     state, outs, times = _track(cfg, intr, frames, timed=True)
-    launches = {"pairs_cg": pairs_cg.launches,
-                "tuple_gram": tuple_gram.launches}
+    launches = {k: w.launches for k, w in wrappers.items()}
 
     counters = ("tuple_overflow", "pair_overflow", "proj_overflow",
                 "add_overflow", "free_exhausted", "dup_skipped")
@@ -246,36 +348,79 @@ def phase_main(dev):
                       num_nodes=int(o.num_nodes),
                       **{c: int(getattr(o, c)) for c in counters})
                  for i, (o, t) in enumerate(zip(outs, times))]
-    trips = cfg.solver.num_iterations * MAIN_FRAMES
+    trips = cfg.solver.num_iterations * (len(frames) - 1)
+    want = {k: trips if k in per_trip else 0 for k in wrappers}
     ok = (all(math.isfinite(f["lm_cost"]) for f in per_frame)
           and all(f["num_surfels"] > 0 for f in per_frame)
-          and launches == {"pairs_cg": trips, "tuple_gram": trips})
+          and launches == want)
     steady = times[1:] or times
-    emit(dict(phase="main", height=cfg.height, width=cfg.width,
+    emit(dict(phase=name, height=cfg.height, width=cfg.width,
+              linear_solver=cfg.solver.linear_solver,
               nodes=per_frame[0]["num_nodes"],
               node_capacity=cfg.capacity.node_capacity,
               surfel_capacity=cfg.capacity.surfel_capacity,
-              lm_trips=trips, launches=launches, setup_s=setup_s,
+              tuple_cap=cfg.solver.assembly_tuple_cap,
+              pair_cap=cfg.solver.assembly_pair_cap,
+              lm_trips=trips, launches=launches,
               ms_per_frame_steady=sum(steady) / len(steady),
               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
               frames=per_frame))
     if not ok:
-        raise RuntimeError("main path check failed (finite cost, surfels, one "
-                           f"K1 and one K2 launch per LM trip): {launches}")
+        raise RuntimeError(f"{name} path check failed (finite cost, surfels, "
+                           f"launches {launches}, want {want})")
+    return launches
+
+
+def phase_main(dev):
+    """The main path at 480 x 640: K1 and K2 once per LM trip."""
+    from super_tpu_torch.config import workload_config
+    from super_tpu_torch.data.synthetic import default_intrinsics
+
+    cfg = workload_config("lm")
+    intr = default_intrinsics(cfg.height, cfg.width, device=dev)
+    t0 = time.perf_counter()
+    frames = _frames(cfg, intr, MAIN_FRAMES + 1, dev)
+    torch.cuda.synchronize()
+    emit(dict(phase="setup", frames=len(frames),
+              seconds=time.perf_counter() - t0))
+    launches = _run_path("main", cfg, intr, frames,
+                         ("pairs_cg", "tuple_gram"))
     return cfg, intr, frames, launches
 
 
-def phase_reference(dev, cfg, intr, frames):
-    """Results against the port's plain path on the CPU, which the CPU
-    tests hold against the JAX package: (a) frame 1's LM solve at full size
-    from identical inputs; (b) a 4-frame tiny scene (48 x 64, mesh step 8)
-    tracked on the card and on the CPU."""
-    from super_tpu_torch.config import CapacityConfig, SolverConfig, \
-        SuPerConfig
+def phase_dense(dev, intr, frames):
+    """Path A, the dense ED graph (mesh step 16, J = 1216): K1b and K2
+    once per LM trip, K1 never.  The synthetic frames do not depend on the
+    mesh step, so the main path's are reused."""
+    from super_tpu_torch.config import workload_config
+
+    cfg = workload_config("dense16")
+    launches = _run_path("dense", cfg, intr, frames[:PATH_FRAMES + 1],
+                         ("pairs_cg_chunked", "tuple_gram"))
+    return cfg, launches
+
+
+def phase_solvers(dev, intr, frames):
+    """Path B, the dense-matrix solvers on the headline workload: K3 and K2
+    once per LM trip with "pcg_pallas"; then "cholesky" and "pcg" (K2
+    only) for one frame each."""
+    from super_tpu_torch.config import workload_config
+
+    launches = _run_path("solvers", workload_config("pcg_pallas"), intr,
+                         frames[:PATH_FRAMES + 1], ("dense_cg", "tuple_gram"))
+    for solver in ("cholesky", "pcg"):
+        _run_path(f"solvers_{solver}", workload_config(solver), intr,
+                  frames[:2], ("tuple_gram",))
+    return launches
+
+
+def _frame1_vs_cpu(cfg, intr, frames):
+    """Frame 1's LM solve at full size on the card and on the CPU path from
+    identical inputs: (max |beta| difference, cost relative difference,
+    CPU seconds)."""
     from super_tpu_torch.core.lm import lm_solve
     from super_tpu_torch.core.losses import prepare_lm
     from super_tpu_torch.core.tracker import init_tracker
-    from super_tpu_torch.data.synthetic import default_intrinsics
 
     def to(x, d):
         if isinstance(x, torch.Tensor):
@@ -294,6 +439,38 @@ def phase_reference(dev, cfg, intr, frames):
     cpu_s = time.perf_counter() - t0
     beta_err = float(torch.max(torch.abs(res_c.beta.cpu() - res_h.beta)))
     cost_rel = abs(float(res_c.cost) - float(res_h.cost)) / float(res_h.cost)
+    return beta_err, cost_rel, float(res_c.cost), cpu_s
+
+
+def phase_path_reference(intr, frames):
+    """Frame 1 of path A and of path B's "pcg_pallas" and "cholesky" against
+    the CPU path (same tolerances as the main path's frame 1)."""
+    from super_tpu_torch.config import workload_config
+
+    out = {}
+    for name in ("dense16", "pcg_pallas", "cholesky"):
+        cfg = workload_config(name)
+        beta_err, cost_rel, cost, cpu_s = _frame1_vs_cpu(cfg, intr, frames)
+        out[name] = dict(beta_max_abs_err=beta_err, cost_rel_err=cost_rel,
+                         cost=cost, cpu_s=cpu_s)
+    emit(dict(phase="path_reference", frame1=out))
+    bad = {k: v for k, v in out.items()
+           if not (v["beta_max_abs_err"] < 1e-4 and v["cost_rel_err"] < 1e-2)}
+    if bad:
+        raise RuntimeError(f"frame 1 disagrees with the CPU path: {bad}")
+
+
+def phase_reference(dev, cfg, intr, frames):
+    """Results against the port's plain path on the CPU, which the CPU
+    tests hold against the JAX package: (a) frame 1's LM solve at full size
+    from identical inputs; (b) a 4-frame tiny scene (48 x 64, mesh step 8)
+    tracked on the card and on the CPU."""
+    from super_tpu_torch.config import CapacityConfig, SolverConfig, \
+        SuPerConfig
+    from super_tpu_torch.data.synthetic import default_intrinsics
+
+    cpu = torch.device("cpu")
+    beta_err, cost_rel, cost, cpu_s = _frame1_vs_cpu(cfg, intr, frames)
 
     tiny = SuPerConfig(
         height=48, width=64, mesh_step_size=8,
@@ -314,7 +491,7 @@ def phase_reference(dev, cfg, intr, frames):
     surf = [(int(a.num_surfels), int(b.num_surfels))
             for a, b in zip(tiny_c, tiny_h)]
     emit(dict(phase="reference", frame1_beta_max_abs_err=beta_err,
-              frame1_cost_rel_err=cost_rel, frame1_cost=float(res_c.cost),
+              frame1_cost_rel_err=cost_rel, frame1_cost=cost,
               frame1_cpu_s=cpu_s, tiny_cost_rel_err=cost_rels,
               tiny_num_surfels=surf))
     # Frame 1 from identical inputs: the same solve up to f32 sum order
@@ -325,6 +502,14 @@ def phase_reference(dev, cfg, intr, frames):
             and all(c < 0.15 for c in cost_rels)
             and all(abs(a - b) <= 0.01 * b for a, b in surf)):
         raise RuntimeError("results disagree with the CPU reference")
+
+
+def _kernel_entry(name, source, replaces, launches, phase):
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                launches=launches, max_abs_err=phase["max_abs_err"],
+                ms=phase["ms"], plain_ms=phase["plain_ms"],
+                bound_ms=phase["bound_ms"], bound_by=phase["bound_by"],
+                library_ms=None)
 
 
 def main() -> int:
@@ -339,26 +524,37 @@ def main() -> int:
     card = card_line()
     phase_build()
     k1 = phase_k1(dev)
+    k1b = phase_k1b(dev)
+    k3 = phase_k3(dev)
     cfg, intr, frames, launches = phase_main(dev)
     state = init_tracker(cfg, frames[0])
     ctx = prepare_lm(cfg, state.surfels, state.graph, frames[1])
     k2 = phase_k2(dev, cfg, ctx, associate(cfg, ctx, intr))
     del state, ctx
     phase_reference(dev, cfg, intr, frames)
+    dense_cfg, dense_launches = phase_dense(dev, intr, frames)
+    state = init_tracker(dense_cfg, frames[0])
+    ctx = prepare_lm(dense_cfg, state.surfels, state.graph, frames[1])
+    phase_k2(dev, dense_cfg, ctx, associate(dense_cfg, ctx, intr),
+             name="k2_dense")
+    del state, ctx
+    solver_launches = phase_solvers(dev, intr, frames)
+    phase_path_reference(intr, frames)
 
     emit({"kernels": [
-        dict(name="pairs_cg", route="cuda",
-             source="super_tpu_torch/csrc/pairs_cg.cu",
-             replaces="super_tpu/pallas_kernels/pcg.py:92",
-             launches=launches["pairs_cg"], max_abs_err=k1["max_abs_err"],
-             ms=k1["ms"], plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
-             bound_by=k1["bound_by"], library_ms=None),
-        dict(name="tuple_gram", route="cuda",
-             source="super_tpu_torch/csrc/tuple_gram.cu",
-             replaces="super_tpu/pallas_kernels/gram.py:33",
-             launches=launches["tuple_gram"], max_abs_err=k2["max_abs_err"],
-             ms=k2["ms"], plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
-             bound_by=k2["bound_by"], library_ms=None),
+        _kernel_entry("pairs_cg", "super_tpu_torch/csrc/pairs_cg.cu",
+                      "super_tpu/pallas_kernels/pcg.py:92",
+                      launches["pairs_cg"], k1),
+        _kernel_entry("pairs_cg_chunked",
+                      "super_tpu_torch/csrc/pairs_cg.cu",
+                      "super_tpu/pallas_kernels/pcg.py:177",
+                      dense_launches["pairs_cg_chunked"], k1b),
+        _kernel_entry("tuple_gram", "super_tpu_torch/csrc/tuple_gram.cu",
+                      "super_tpu/pallas_kernels/gram.py:33",
+                      launches["tuple_gram"], k2),
+        _kernel_entry("dense_cg", "super_tpu_torch/csrc/dense_cg.cu",
+                      "super_tpu/pallas_kernels/pcg.py:32",
+                      solver_launches["dense_cg"], k3),
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

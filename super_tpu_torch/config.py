@@ -44,9 +44,10 @@ class SolverConfig:
     """Per-frame warp-field solver settings.
 
     The port runs the LM path with ``association="per_frame"``,
-    ``lm_schedule="deferred"``, ``linear_solver="pairs_fused"`` and the tuple
-    assembly; the other values of these fields belong to later slices and
-    raise where they would be taken.
+    ``lm_hypotheses=1``, the tuple assembly with the pair expansion, either
+    ``lm_schedule``, and the ``pairs_fused``, ``cholesky``, ``pcg`` and
+    ``pcg_pallas`` solvers; the other values of these fields belong to
+    later slices and raise where they would be taken.
     """
 
     use_derived_gradient: bool = True
@@ -162,23 +163,54 @@ class SuPerConfig:
 def lm_workload_config(height: int = 480, width: int = 640,
                        mesh_step: int = 30) -> SuPerConfig:
     """The LM tracking workload of the JAX package's bench (bench.py,
-    build_workload, non-semantic branch, node_capacity <= 512) with the
-    tuple-Gram assembly backend: at 480 x 640 and mesh step 30, 336 ED
-    nodes in a capacity of 384 and 425,984 surfel slots."""
+    build_workload, non-semantic branch) with the tuple-Gram assembly
+    backend.  Both of its branches:
+
+    - node_capacity <= 512 (mesh step 30 at 480 x 640: 352 grid anchors in
+      a capacity of 384): pad group 64 and one more 32,768-slot chunk of
+      surfel capacity (425,984 slots), tuple and pair caps 4096;
+    - the dense graph (mesh step 16: 1,200 anchors in 1,216): tuple cap
+      8 J and pair cap 16 J (9,728 and 19,456), pad group 32, 393,216
+      surfel slots.  Its pair CG takes kernel K1b.
+    """
+    # The anchor count of core/graph.py:grid_layout.
     nodes = len(range(0, width - 1, mesh_step)) * \
         len(range(0, height - 1, mesh_step))
     node_cap = max(64, -(-nodes // 64) * 64)
-    if node_cap > 512:
-        raise NotImplementedError("the dense-graph workload is not ported")
     chunk = 32768
-    surfel_cap = -(-int(1.25 * height * width) // chunk) * chunk + chunk
+    surfel_cap = -(-int(1.25 * height * width) // chunk) * chunk
+    solver = dict(association="per_frame", linear_solver="pairs_fused",
+                  pcg_iterations=32, gram_sum_dtype="bf16",
+                  assembly_backend="pallas")
+    if node_cap <= 512:
+        surfel_cap += chunk
+        solver.update(assembly_pad_group=64)
+    else:
+        solver.update(assembly_tuple_cap=8 * node_cap,
+                      assembly_pair_cap=16 * node_cap)
     return SuPerConfig(
         height=height, width=width, mesh_step_size=mesh_step,
         capacity=CapacityConfig(
             surfel_capacity=surfel_cap, node_capacity=node_cap,
             edge_capacity=4 * node_cap, triangle_capacity=2 * node_cap,
             new_surfel_capacity=8192),
-        solver=SolverConfig(
-            association="per_frame", assembly_pad_group=64,
-            linear_solver="pairs_fused", pcg_iterations=32,
-            gram_sum_dtype="bf16", assembly_backend="pallas"))
+        solver=SolverConfig(**solver))
+
+
+# The named paths of the LM tracking step at 480 x 640 that chip_smoke.py
+# and profile_step.py drive.
+WORKLOADS = ("lm", "dense16", "pcg_pallas", "cholesky", "pcg")
+
+
+def workload_config(name: str) -> SuPerConfig:
+    """A named path at 480 x 640: ``lm``, the headline (mesh step 30,
+    pair-sparse CG by K1); ``dense16``, the dense ED graph (mesh step 16,
+    K1b); ``pcg_pallas`` (K3), ``cholesky`` and ``pcg``, the headline with
+    that dense-matrix solver."""
+    if name not in WORKLOADS:
+        raise ValueError(f"unknown workload {name!r}; one of {WORKLOADS}")
+    cfg = lm_workload_config(480, 640, 16 if name == "dense16" else 30)
+    if name not in ("lm", "dense16"):
+        cfg = cfg.replace(solver=dataclasses.replace(cfg.solver,
+                                                     linear_solver=name))
+    return cfg

@@ -5,8 +5,10 @@ Per frame, surfels are sorted by anchor tuple and each tuple's run is padded
 to a multiple of G, so every G-row block of the padded order lies inside one
 tuple.  Per LM trip, the tuple-Gram kernel (kernels/gram.py) reduces the
 gradient rows to per-tuple Grams, and :func:`reduce_pairs` folds those into
-the distinct node-pair blocks the pair-sparse CG solve consumes.  Inactive
-surfels sort into the last tuple, a sink whose slots are masked.
+the distinct node-pair blocks the pair-sparse CG solve consumes, or
+:func:`expand_pairs` writes them into the dense (7J, 7J) normal matrix of
+the dense solvers.  Inactive surfels sort into the last tuple, a sink whose
+slots are masked.
 
 The sorts reproduce the JAX package's total orders exactly: the tuple sort
 is one stable sort of a composite int64 key (ties fall back to the slot id,
@@ -246,3 +248,32 @@ def reduce_pairs(layout: TupleLayout, gram, jtr_t, node_cap: int,
     jtr = segment_sum(-jtr_t.reshape(t_cap * k, 7),
                       layout.tuple_nodes.reshape(-1), node_cap)
     return acc, jtr
+
+
+def _scatter_blocks_set(dense, starts, blocks):
+    """``dense.at[r, c].set(blocks, mode="drop")`` of (P, 7, 7) blocks at
+    row/column ``starts`` (P, 2) into (dim, dim) ``dense``.  The distinct
+    pairs' in-range targets are unique; the sink's out-of-range start goes
+    to one scratch element past the end, which is sliced off."""
+    dim = dense.shape[0]
+    seven = torch.arange(7, device=dense.device)
+    st = starts.long()
+    r = st[:, 0, None, None] + seven[None, :, None]
+    c = st[:, 1, None, None] + seven[None, None, :]
+    flat = torch.where((r < dim) & (c < dim), r * dim + c, dim * dim)
+    ext = torch.cat([dense.reshape(-1), dense.new_zeros((1,))])
+    ext[flat.reshape(-1)] = blocks.reshape(-1).to(ext.dtype)
+    return ext[:dim * dim].reshape(dim, dim)
+
+
+def expand_pairs(layout: TupleLayout, gram, jtr_t, node_cap: int,
+                 sum_dtype=None):
+    """Per-tuple Grams -> dense (7J, 7J) JTJ and (J, 7) JTr through the pair
+    layout: the symmetric-half pair sums of :func:`reduce_pairs`, set into
+    S at each distinct pair's block, then JTJ = S + S^T."""
+    acc, jtr = reduce_pairs(layout, gram, jtr_t, node_cap,
+                            sum_dtype=sum_dtype)
+    dim = 7 * node_cap
+    s = _scatter_blocks_set(acc.new_zeros((dim, dim)), layout.pair_dest,
+                            acc.reshape(-1, 7, 7))
+    return s + s.T, jtr

@@ -1,14 +1,22 @@
-"""Levenberg-Marquardt warp solve (counterpart of super_tpu/core/lm.py: the
-deferred schedule with the pairs_fused solver and the per-frame
-association).
+"""Levenberg-Marquardt warp solve (counterpart of super_tpu/core/lm.py:
+the deferred and classic schedules with the per-frame association, and the
+pairs_fused, cholesky, pcg and pcg_pallas solvers).
 
 The loop has a fixed trip count and branch-free accept/reject
-(``torch.where``), so a frame runs without host syncs.  Each trip assembles
-the normal equations at the candidate (whose cost falls out of the same
-pass), accepts or rejects it, and solves the damped pair-sparse system with
-kernel K1 (kernels/pcg.py), warm-started from the last accepted step.
-Profiler ranges (``lm.*``) mark the association, each trip's assembly and
-solve, and the final cost pass for a traced run.
+(``torch.where``), so a frame runs without host syncs.  In the deferred
+schedule each trip assembles the normal equations at the candidate (whose
+cost falls out of the same pass), accepts or rejects it, and solves the
+damped system from the last accepted equations; the classic schedule
+assembles at the accepted point and judges each candidate by a separate
+cost pass.  The solves: the pair-sparse system by kernel K1 or K1b
+(kernels/pcg.py:pairs_cg), warm-started from the last accepted step; the
+dense (7J, 7J) system by Jacobi-scaled Cholesky, by block-Jacobi PCG in
+PyTorch ops, or by block preconditioning and kernel K3
+(kernels/pcg.py:dense_cg).  An ill-posed solve (a factor that is not
+positive definite gives NaN, as ``jnp.linalg.cholesky`` does) yields a
+non-finite step, which the loop treats as a reject.  Profiler ranges
+(``lm.*``) mark the association, each trip's assembly and solve, and the
+cost passes for a traced run.
 """
 
 from __future__ import annotations
@@ -28,7 +36,7 @@ from super_tpu_torch.core.losses import (
     total_cost,
 )
 from super_tpu_torch.geometry.camera import Intrinsics
-from super_tpu_torch.kernels.pcg import pairs_cg
+from super_tpu_torch.kernels.pcg import dense_cg, pairs_cg
 
 
 class LMResult(NamedTuple):
@@ -136,13 +144,127 @@ def _pairs_fused_solve(cfg: SuPerConfig, layout, acc, rhs, u, j_cap: int,
     return x_fm.T.reshape(7 * j_cap)
 
 
+def _diag_blocks(a, j_cap: int):
+    """The (J, 7, 7) diagonal node blocks of a dense (7J, 7J) matrix."""
+    return a.reshape(j_cap, 7, j_cap, 7).diagonal(dim1=0, dim2=2).permute(
+        2, 0, 1)
+
+
+def _cholesky_nan(a):
+    """Lower Cholesky factor(s), NaN where a matrix is not positive definite
+    (``jnp.linalg.cholesky``'s answer).  ``cholesky_ex`` reports failure in
+    ``info`` on the device; ``cholesky`` would sync the host to raise."""
+    chol, info = torch.linalg.cholesky_ex(a)
+    return torch.where((info == 0)[..., None, None], chol, float("nan"))
+
+
+def _block_jacobi_pcg(a, b, j_cap: int, iterations: int, inv_d, x0):
+    """Block-Jacobi PCG on the Jacobi-scaled system D^-1/2 A D^-1/2 x = b,
+    the scaling folded into the matvec (the JAX package's f32 path of
+    ``_block_jacobi_pcg``), warm-started from ``x0``."""
+    dim = 7 * j_cap
+
+    def matvec(p):
+        return inv_d * (a @ (inv_d * p))
+
+    d_scale = inv_d.reshape(j_cap, 7)
+    diag = _diag_blocks(a, j_cap).to(b.dtype) * d_scale[:, :, None] * \
+        d_scale[:, None, :]
+    eye7 = torch.eye(7, dtype=b.dtype, device=b.device)
+    diag_inv = torch.linalg.inv_ex(diag + 1e-8 * eye7).inverse
+
+    def precond(r):
+        return torch.einsum("jab,jb->ja", diag_inv,
+                            r.reshape(j_cap, 7)).reshape(dim)
+
+    x = x0
+    r = b - matvec(x0)
+    z = precond(r)
+    p = z
+    rz = r @ z
+    for _ in range(iterations):
+        ap = matvec(p)
+        denom = p @ ap
+        alpha = torch.where(torch.abs(denom) > 1e-30, rz / denom, 0.0)
+        x = x + alpha * p
+        r = r - alpha * ap
+        z = precond(r)
+        rz_new = r @ z
+        beta = torch.where(torch.abs(rz) > 1e-30, rz_new / rz, 0.0)
+        p = z + beta * p
+        rz = rz_new
+    return x
+
+
+def block_precondition(a, rhs, j_cap: int):
+    """Fold the block-Jacobi preconditioner into the system: with L the
+    Cholesky factors of A's 7x7 diagonal blocks, A-hat = L^-1 A L^-T (unit
+    diagonal blocks) and b-hat = L^-1 b.  Returns (A-hat, b-hat, L^-1)."""
+    dim = 7 * j_cap
+    eye7 = torch.eye(7, dtype=rhs.dtype, device=rhs.device)
+    chol = _cholesky_nan(_diag_blocks(a, j_cap).to(rhs.dtype) + 1e-8 * eye7)
+    linv = torch.linalg.solve_triangular(
+        chol, eye7.expand(j_cap, 7, 7), upper=False)
+    # Two batched 7-row transforms, each one pass over the matrix (f32,
+    # TF32 off).
+    a1 = torch.einsum("jik,jkd->jid", linv,
+                      a.reshape(j_cap, 7, dim)).reshape(dim, dim)
+    a_hat = torch.einsum("djk,jik->dji", a1.reshape(dim, j_cap, 7),
+                         linv).reshape(dim, dim)
+    b_hat = torch.einsum("jik,jk->ji", linv,
+                         rhs.reshape(j_cap, 7)).reshape(dim)
+    return a_hat, b_hat, linv
+
+
+def _block_precond_pcg_pallas(a, rhs, j_cap: int, iterations: int):
+    """The damped dense solve of ``linear_solver="pcg_pallas"``: block
+    preconditioning, plain CG on A-hat by kernel K3, x = L^-T x-hat."""
+    a_hat, b_hat, linv = block_precondition(a, rhs, j_cap)
+    x_hat = dense_cg(a_hat, b_hat, iterations=iterations)
+    return torch.einsum("jki,jk->ji", linv,
+                        x_hat.reshape(j_cap, 7)).reshape(7 * j_cap)
+
+
+def solve_damped(cfg: SuPerConfig, layout, jtj, rhs, u, j_cap: int, x0):
+    """The LM step for damping ``u``: (J^T J + u I) delta = rhs, with jtj in
+    the solver's form (pair blocks for ``pairs_fused``, dense otherwise).
+
+    The dense solves other than ``pcg_pallas`` scale the system by its
+    diagonal first (the q- and b-columns differ by ~1e3 in magnitude);
+    ``pcg`` warm-starts from ``x0``, the direct solves ignore it."""
+    sol = cfg.solver
+    if sol.linear_solver == "pairs_fused":
+        return _pairs_fused_solve(cfg, layout, jtj, rhs, u, j_cap, x0=x0)
+    a = torch.diagonal_scatter(jtj, jtj.diagonal() + u)
+    if sol.linear_solver == "pcg_pallas":
+        return _block_precond_pcg_pallas(a, rhs, j_cap, sol.pcg_iterations)
+    d = torch.sqrt(torch.clamp(a.diagonal(), min=1e-20))
+    inv_d = 1.0 / d
+    b_s = rhs * inv_d
+    if sol.linear_solver == "pcg":
+        x = _block_jacobi_pcg(a, b_s, j_cap, sol.pcg_iterations, inv_d,
+                              x0 * d)
+    else:
+        chol = _cholesky_nan(a * inv_d[:, None] * inv_d[None, :])
+        y = torch.linalg.solve_triangular(chol, b_s[:, None], upper=False)
+        x = torch.linalg.solve_triangular(chol.T, y, upper=True)[:, 0]
+    return x * inv_d
+
+
 def lm_solve(cfg: SuPerConfig, ctx: LMContext, intr: Intrinsics) -> LMResult:
     sol = cfg.solver
-    if sol.lm_schedule != "deferred" or sol.lm_hypotheses != 1 or \
-            sol.association != "per_frame" or not cfg.losses.sf_point_plane:
+    if sol.jtj_dtype == "bf16" and sol.linear_solver != "pcg":
+        raise ValueError(
+            "jtj_dtype='bf16' requires linear_solver='pcg' (the dense "
+            "Cholesky would materialize an f32 copy, defeating the bf16 "
+            "accumulator's memory purpose)")
+    if sol.lm_schedule not in ("deferred", "classic") or \
+            sol.lm_hypotheses != 1 or sol.association != "per_frame" or \
+            not cfg.losses.sf_point_plane:
         raise NotImplementedError(
-            "the port runs lm_schedule='deferred', lm_hypotheses=1 and "
-            "association='per_frame' with the point-plane term")
+            "the port runs the deferred and classic schedules with "
+            "lm_hypotheses=1 and association='per_frame' with the "
+            "point-plane term")
     j_cap = ctx.ed_mask.shape[0]
     dim = 7 * j_cap
     dtype = ctx.d_eds.dtype
@@ -155,6 +277,20 @@ def lm_solve(cfg: SuPerConfig, ctx: LMContext, intr: Intrinsics) -> LMResult:
     with record_function("lm.associate"):
         assoc = associate(cfg, ctx, intr)
 
+    def assemble(beta):
+        with record_function("lm.assemble"):
+            return assemble_normal_equations(cfg, ctx, beta, intr, assoc)
+
+    def solve(jtj, jtr, u, x0):
+        with record_function("lm.solve"):
+            delta = solve_damped(cfg, ctx.layout, jtj, jtr, u, j_cap, x0)
+        ok = torch.all(torch.isfinite(delta))
+        return torch.where(ok, delta, 0.0), ok
+
+    if sol.lm_schedule == "classic":
+        return _lm_solve_classic(cfg, ctx, intr, assoc, beta0, u0, assemble,
+                                 solve)
+
     beta_cand, best_beta = beta0, beta0
     best_cost = torch.full((), 1e10, dtype=dtype, device=dev)
     best_jtj = best_jtr = None
@@ -163,9 +299,7 @@ def lm_solve(cfg: SuPerConfig, ctx: LMContext, intr: Intrinsics) -> LMResult:
     # num_iterations trips judge beta0 plus the first num_iterations-1
     # candidates; the last candidate is judged by a residual-only pass.
     for i in range(sol.num_iterations):
-        with record_function("lm.assemble"):
-            jtj_c, jtr_c, cost_c = assemble_normal_equations(
-                cfg, ctx, beta_cand, intr, assoc)
+        jtj_c, jtr_c, cost_c = assemble(beta_cand)
         if i == 0:
             # Trip 0 caches beta0's equations but keeps the 1e10 cost: the
             # reference never evaluates the cost at beta0.
@@ -180,11 +314,7 @@ def lm_solve(cfg: SuPerConfig, ctx: LMContext, intr: Intrinsics) -> LMResult:
         u = torch.where(accept, u / v, u * v)
         # After a reject the damping jumped: cold-start the solve.
         x0 = torch.where(accept, delta_prev, 0.0)
-        with record_function("lm.solve"):
-            delta = _pairs_fused_solve(cfg, ctx.layout, best_jtj, best_jtr,
-                                       u, j_cap, x0=x0)
-        ok = torch.all(torch.isfinite(delta))
-        delta = torch.where(ok, delta, 0.0)
+        delta, _ = solve(best_jtj, best_jtr, u, x0)
         beta_cand = best_beta + delta.reshape(j_cap, 7)
         delta_prev = delta
 
@@ -194,4 +324,30 @@ def lm_solve(cfg: SuPerConfig, ctx: LMContext, intr: Intrinsics) -> LMResult:
     best_beta = torch.where(accept, beta_cand, best_beta)
     best_cost = torch.where(accept, cost_c, best_cost)
     u = torch.where(accept, u / v, u * v)
+    return LMResult(beta=best_beta, cost=best_cost, final_damping=u)
+
+
+def _lm_solve_classic(cfg: SuPerConfig, ctx: LMContext, intr, assoc, beta0,
+                      u0, assemble, solve) -> LMResult:
+    """The reference loop: assemble at the accepted point, solve, judge the
+    candidate by a separate cost pass (the JAX package's classic body)."""
+    v = cfg.solver.lm_damping_factor
+    beta, best_beta = beta0, beta0
+    best_cost = torch.full((), 1e10, dtype=beta0.dtype, device=beta0.device)
+    u = u0
+    delta_prev = beta0.new_zeros((beta0.numel(),))
+    for _ in range(cfg.solver.num_iterations):
+        jtj, jtr, _ = assemble(beta)
+        # (delta_prev is zeroed on reject, so a rejected step's overlong
+        # delta never warm-starts the more-damped re-solve.)
+        delta, ok = solve(jtj, jtr, u, delta_prev)
+        beta_new = beta + delta.reshape(beta.shape)
+        with record_function("lm.cost"):
+            cost = total_cost(cfg, ctx, beta_new, intr, assoc)
+        accept = ok & (cost < best_cost)
+        best_beta = torch.where(accept, beta_new, best_beta)
+        best_cost = torch.where(accept, cost, best_cost)
+        u = torch.where(accept, u / v, u * v)
+        beta = torch.where(accept, beta_new, best_beta)
+        delta_prev = torch.where(accept, delta, 0.0)
     return LMResult(beta=best_beta, cost=best_cost, final_damping=u)

@@ -1,14 +1,17 @@
 """Residuals and normal equations of the LM warp solve (counterpart of the
-tuple-mode, pairs_fused parts of super_tpu/core/losses.py).
+tuple-mode parts of super_tpu/core/losses.py).
 
 The data term is point-to-plane ICP against a frozen per-frame association
 (``association="per_frame"``): each iteration re-linearises only the warp.
 Per LM trip the gradient rows ``h`` (Np, 28) and residuals ``r`` (Np,) are
-computed for every padded slot in one feature-major pass, kernel K2 reduces
-them to per-tuple Grams (kernels/gram.py), and :func:`assembly.reduce_pairs`
-folds those into the pair-sparse normal equations -- the form of the JAX
-package's ``assembly_backend="pallas"`` branch.  The ARAP and rotation terms
-are graph-sized and add their blocks in the same pair form.
+computed for every padded slot in one feature-major pass, and kernel K2
+reduces them to per-tuple Grams (kernels/gram.py) -- the form of the JAX
+package's ``assembly_backend="pallas"`` branch.  With the ``pairs_fused``
+solver :func:`assembly.reduce_pairs` folds the Grams into the pair-sparse
+normal equations and the graph-sized ARAP and rotation terms add their
+blocks in the same pair form; the dense solvers (``cholesky``, ``pcg``,
+``pcg_pallas``) get the (7J, 7J) matrix from :func:`assembly.expand_pairs`
+with the graph terms' blocks added into it (:func:`_add_blocks`).
 
 All slots are computed (no stop at ``layout.live_end``): sink and padding
 slots are masked to exact zeros, and no device count has to reach the host.
@@ -67,11 +70,16 @@ class Assoc(NamedTuple):
 
 def _check_supported(cfg: SuPerConfig):
     sol = cfg.solver
+    dense = sol.linear_solver in ("cholesky", "pcg", "pcg_pallas")
     if sol.assembly_mode != "tuple" or cfg.num_neighbors != 4 or \
-            sol.linear_solver != "pairs_fused":
+            sol.jtj_dtype != "f32" or \
+            not (sol.linear_solver == "pairs_fused" or dense) or \
+            (dense and sol.assembly_expand != "pairs"):
         raise NotImplementedError(
-            "the port runs the tuple assembly (K=4) with the pairs_fused "
-            "solver; other assembly modes and solvers are not ported")
+            "the port runs the tuple assembly (K=4) in f32 with the "
+            "pairs_fused solver, or with the pair expansion and the "
+            "cholesky, pcg or pcg_pallas solver; other assembly modes, "
+            "expansions and solvers are not ported")
 
 
 def prepare_lm(cfg: SuPerConfig, surfels: SurfelState, graph: GraphState,
@@ -80,27 +88,33 @@ def prepare_lm(cfg: SuPerConfig, surfels: SurfelState, graph: GraphState,
     sol = cfg.solver
     dev = surfels.points.device
     j_cap = graph.capacity
+    pairs_fused = sol.linear_solver == "pairs_fused"
     self_idx = torch.arange(j_cap, dtype=torch.int32, device=dev)
     nb = graph.knn_idx.to(torch.int32)
     self_b = self_idx[:, None].expand(nb.shape)
-    # Graph-term pairs (ED edges + node diagonals) must exist in the table.
-    extra_pairs = torch.cat([
-        torch.stack([self_b.reshape(-1), nb.reshape(-1)], dim=1),
-        torch.stack([self_idx, self_idx], dim=1)])
+    extra_pairs = None
+    if pairs_fused:
+        # The sparse solve keeps the graph terms in pair form too: their
+        # pairs (ED edges + node diagonals) must exist in the table.
+        extra_pairs = torch.cat([
+            torch.stack([self_b.reshape(-1), nb.reshape(-1)], dim=1),
+            torch.stack([self_idx, self_idx], dim=1)])
     layout = assembly.build_tuple_layout(
         surfels.knn_idx, surfels.active, j_cap,
         tuple_cap=sol.assembly_tuple_cap, pad_group=sol.assembly_pad_group,
         chunk=sol.assembly_chunk, pair_cap=sol.assembly_pair_cap,
         extra_pairs=extra_pairs)
-    pk = layout.pair_key
-    lookup = assembly.pair_rank_lookup
-    layout = layout._replace(
-        diag_rank=lookup(pk, j_cap, torch.stack([self_idx, self_idx], -1)),
-        arap_rank=torch.stack([
-            lookup(pk, j_cap, torch.stack([nb, nb], -1)),
-            lookup(pk, j_cap, torch.stack([self_b, self_b], -1)),
-            lookup(pk, j_cap, torch.stack([nb, self_b], -1))], dim=-1),
-        arap_swap=self_b < nb)
+    if pairs_fused:
+        pk = layout.pair_key
+        lookup = assembly.pair_rank_lookup
+        layout = layout._replace(
+            diag_rank=lookup(pk, j_cap, torch.stack([self_idx, self_idx],
+                                                    -1)),
+            arap_rank=torch.stack([
+                lookup(pk, j_cap, torch.stack([nb, nb], -1)),
+                lookup(pk, j_cap, torch.stack([self_b, self_b], -1)),
+                lookup(pk, j_cap, torch.stack([nb, self_b], -1))], dim=-1),
+            arap_swap=self_b < nb)
 
     bank = torch.cat([surfels.active[None].to(surfels.points.dtype),
                       surfels.knn_w, surfels.points])
@@ -262,10 +276,11 @@ def data_rows(ctx: LMContext, beta, weight: float, assoc: Assoc):
 
 def data_normal_equations(cfg: SuPerConfig, ctx: LMContext, beta,
                           weight: float, assoc: Assoc):
-    """Data term in pair form: (acc (P, 49), jtr (J, 7), cost).
+    """Data term: (jtj, jtr (J, 7), cost), with jtj the (P, 49) pair form
+    for ``pairs_fused`` and the dense (7J, 7J) matrix otherwise.
 
     Rows and residuals of every slot, then kernel K2 (tuple Grams), then the
-    pair reduction.
+    pair reduction or the pair expansion.
     """
     sol = cfg.solver
     h, r = data_rows(ctx, beta, weight, assoc)
@@ -273,10 +288,12 @@ def data_normal_equations(cfg: SuPerConfig, ctx: LMContext, beta,
     gram, jtr_t = tuple_gram(h, r, layout.block_tuple,
                              tuple_cap=layout.tuple_nodes.shape[0],
                              block=sol.assembly_pad_group)
-    acc, jtr7 = assembly.reduce_pairs(
+    fold = assembly.reduce_pairs if sol.linear_solver == "pairs_fused" \
+        else assembly.expand_pairs
+    jtj, jtr7 = fold(
         layout, gram, jtr_t, ctx.ed_mask.shape[0],
         sum_dtype=sol.gram_sum_dtype if sol.gram_sum_dtype != "f32" else None)
-    return acc, jtr7, torch.sum(r * r)
+    return jtj, jtr7, torch.sum(r * r)
 
 
 def arap_term_residual(ctx: LMContext, beta, weight: float):
@@ -322,16 +339,33 @@ def rot_term_jacobian(beta, active, weight: float):
             active)
 
 
+def _add_blocks(jtj, rows_nodes, cols_nodes, vals):
+    """``jtj.at[r, c].add(vals)`` of the JAX package: 7x7 blocks (R, 7, 7)
+    added into the dense (7J, 7J) matrix at node rows/columns (R,)."""
+    dim = jtj.shape[0]
+    seven = torch.arange(7, device=jtj.device)
+    r = rows_nodes.long()[:, None, None] * 7 + seven[:, None]
+    c = cols_nodes.long()[:, None, None] * 7 + seven[None, :]
+    return jtj.reshape(-1).index_add(0, (r * dim + c).reshape(-1),
+                                     vals.reshape(-1)).reshape(dim, dim)
+
+
 def assemble_normal_equations(cfg: SuPerConfig, ctx: LMContext, beta,
                               intr: Intrinsics, assoc: Assoc):
-    """Pair-form normal equations and cost at ``beta``:
-    (jtj (P, 49) symmetric-half pair blocks, jtr (7J,), cost)."""
+    """Normal equations and cost at ``beta``: (jtj, jtr (7J,), cost).
+
+    jtj is the (P, 49) pair form (symmetric-half pair blocks) for the
+    ``pairs_fused`` solver, the dense (7J, 7J) matrix for the others.
+    """
     _check_supported(cfg)
     j_cap = ctx.ed_mask.shape[0]
     losses = cfg.losses
     layout = ctx.layout
-    pcap = layout.pair_dest.shape[0]
-    jtj = beta.new_zeros((pcap, 49))
+    pairs_fused = cfg.solver.linear_solver == "pairs_fused"
+    if pairs_fused:
+        jtj = beta.new_zeros((layout.pair_dest.shape[0], 49))
+    else:
+        jtj = beta.new_zeros((7 * j_cap, 7 * j_cap))
     jtr = beta.new_zeros((j_cap, 7))
     cost = beta.new_zeros(())
     if losses.sf_point_plane:
@@ -349,25 +383,39 @@ def assemble_normal_equations(cfg: SuPerConfig, ctx: LMContext, beta,
         for a in range(2):
             jtr = jtr.index_add(0, idx2[:, a], -torch.einsum(
                 "rci,rc->ri", g2[:, :, a, :], r2))
-        b00 = torch.einsum("rci,rcj->rij", g2[:, :, 0], g2[:, :, 0])
-        b11 = torch.einsum("rci,rcj->rij", g2[:, :, 1], g2[:, :, 1])
-        b01 = torch.einsum("rci,rcj->rij", g2[:, :, 0], g2[:, :, 1])
-        swap = layout.arap_swap.reshape(jk)
-        boff = torch.where(swap[:, None, None], b01.transpose(1, 2), b01)
-        graph_rows += [0.5 * b00.reshape(jk, 49), 0.5 * b11.reshape(jk, 49),
-                       boff.reshape(jk, 49)]
-        ar = layout.arap_rank.reshape(jk, 3)
-        graph_ranks += [ar[:, 0], ar[:, 1], ar[:, 2]]
+        if pairs_fused:
+            # Distinct-pair rows under the symmetric-half convention
+            # (diagonal pairs halved, off-diagonal oriented min -> max).
+            b00 = torch.einsum("rci,rcj->rij", g2[:, :, 0], g2[:, :, 0])
+            b11 = torch.einsum("rci,rcj->rij", g2[:, :, 1], g2[:, :, 1])
+            b01 = torch.einsum("rci,rcj->rij", g2[:, :, 0], g2[:, :, 1])
+            swap = layout.arap_swap.reshape(jk)
+            boff = torch.where(swap[:, None, None], b01.transpose(1, 2), b01)
+            graph_rows += [0.5 * b00.reshape(jk, 49),
+                           0.5 * b11.reshape(jk, 49), boff.reshape(jk, 49)]
+            ar = layout.arap_rank.reshape(jk, 3)
+            graph_ranks += [ar[:, 0], ar[:, 1], ar[:, 2]]
+        else:
+            for a in range(2):
+                for b in range(2):
+                    blk = torch.einsum("rci,rcj->rij", g2[:, :, a],
+                                       g2[:, :, b])
+                    jtj = _add_blocks(jtj, idx2[:, a], idx2[:, b], blk)
     if losses.mesh_rot:
         r, g, _ = rot_term_jacobian(beta, ctx.ed_mask, losses.mesh_rot_weight)
         cost = cost + torch.sum(r * r)
         jtr = jtr - g * r[:, None]
-        graph_rows.append((0.5 * g[:, :, None] * g[:, None, :]).reshape(
-            j_cap, 49))
-        graph_ranks.append(layout.diag_rank)
+        ggt = g[:, :, None] * g[:, None, :]
+        if pairs_fused:
+            graph_rows.append(0.5 * ggt.reshape(j_cap, 49))
+            graph_ranks.append(layout.diag_rank)
+        else:
+            diag = torch.arange(j_cap, device=beta.device)
+            jtj = _add_blocks(jtj, diag, diag, ggt)
     if graph_rows:
         jtj = jtj + assembly.segment_sum(torch.cat(graph_rows),
-                                         torch.cat(graph_ranks), pcap)
+                                         torch.cat(graph_ranks),
+                                         jtj.shape[0])
     return jtj, jtr.reshape(7 * j_cap), cost
 
 

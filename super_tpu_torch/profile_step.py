@@ -1,9 +1,14 @@
-"""Where the time of the port's main path goes, on one CUDA card.
+"""Where the time of a path of the LM tracking step goes, on one CUDA card.
 
-    python -m super_tpu_torch.profile_step [--frames 4] [--seed 0]
+    python -m super_tpu_torch.profile_step [--workload lm] [--frames 4]
+                                           [--seed 0]
 
-Runs the LM tracking workload at 480 x 640 (config.lm_workload_config):
-frame 0 initialises, one frame warms up, one runs under CUDA's sync debug
+Runs a path of the LM tracking step at 480 x 640 (config.workload_config):
+``lm``, the headline (mesh step 30, J = 384, pair-sparse CG by K1);
+``dense16``, the dense ED graph (mesh step 16, J = 1216, K1b);
+``pcg_pallas``, ``cholesky`` or ``pcg``, the headline with that
+dense-matrix solver (K3 for ``pcg_pallas``).
+Frame 0 initialises, one frame warms up, one runs under CUDA's sync debug
 mode to find any host sync in the step, then ``--frames`` frames run with
 tracing off, each timed on the host clock around a synchronised step, and
 the same number of frames under ``torch.profiler``.  Prints one JSON line:
@@ -30,7 +35,7 @@ import torch
 from torch.autograd import DeviceType
 
 import super_tpu_torch  # noqa: F401  (TF32 off)
-from super_tpu_torch.config import lm_workload_config
+from super_tpu_torch.config import WORKLOADS, workload_config
 from super_tpu_torch.core.preprocess import preprocess_frame
 from super_tpu_torch.core.tracker import init_tracker, track_step
 from super_tpu_torch.data.synthetic import default_intrinsics, generate
@@ -66,6 +71,7 @@ def _count_syncs(cfg, intr, state, frame):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--workload", choices=WORKLOADS, default="lm")
     ap.add_argument("--frames", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -76,7 +82,7 @@ def main():
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
 
-    cfg = lm_workload_config(480, 640, 30)
+    cfg = workload_config(args.workload)
     intr = default_intrinsics(cfg.height, cfg.width, device=dev)
     n = 3 + 2 * args.frames
     seq = generate(n, cfg.height, cfg.width, intr=intr, seed=args.seed)
@@ -141,7 +147,10 @@ def main():
     device_ms = sum(k1 - k0 for k0, k1, _ in kernels) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
     print(json.dumps(dict(
-        card=card, frames=args.frames, seed=args.seed,
+        card=card, workload=args.workload,
+        linear_solver=cfg.solver.linear_solver,
+        node_capacity=cfg.capacity.node_capacity, frames=args.frames,
+        seed=args.seed,
         host_syncs_per_frame=len(syncs), host_sync_sites=syncs[:10],
         untraced_ms_per_frame=untraced,
         untraced_median_ms=statistics.median(untraced),
