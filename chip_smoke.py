@@ -17,6 +17,12 @@ results are right:
 - solvers: the headline workload with the dense-matrix solvers,
   ``linear_solver="pcg_pallas"`` (K3, K2), then ``"cholesky"`` and ``"pcg"``.
 
+K1 and K1b (one cooperative grid over all SMs each) are also checked on
+the adversarial pair systems of ``core/lm.py:adversarial_pair_system``
+(shuffled pairs with sinks between them, a hub node, duplicate pairs,
+J = 64), each launch pair compared bitwise, and timed on the band system of
+their path's own frame 1 (phases ``path_main`` and ``path_dense``).
+
 Launch counts are set to 0 just before a path runs and read just after.
 Each phase prints one JSON line; any failure raises and exits non-zero.  The
 run ends with a ``{"kernels": [...]}`` summary line, the card's name and
@@ -48,19 +54,36 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Mean device time of ``fn`` over ``reps`` back-to-back runs."""
+def cuda_ms(fn, reps: int, warmup: int = 2, queued: bool = False) -> float:
+    """Mean device time of ``fn`` over ``reps`` back-to-back runs.  With
+    ``queued`` the card first spins for ~10 ms, so that all ``reps`` runs
+    are queued before the first starts: the events then time the device
+    alone, not also the host's enqueueing where it is slower."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(20_000_000)
     start.record()
     for _ in range(reps):
         fn()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def host_ms(fn, reps: int) -> float:
+    """Mean host time to enqueue ``fn`` (no synchronisation inside)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return t
 
 
 def bound(nbytes: float, flops: float):
@@ -103,17 +126,33 @@ def _pair_matrix(layout, acc, u, j, dev):
                                                   device=dev)
 
 
-def _pair_cg_phase(dev, name, j, p, kernel, plain, round_acc):
-    """A pair-sparse CG kernel (K1 or K1b) against its plain version on a
-    seeded well-posed pair system of J nodes and P pairs, 32 iterations."""
-    from super_tpu_torch.core.lm import example_pair_system, pairs_band_system
+PAIR_ITERS = 32
+# (J, P) of the adversarial pair systems that do not take the kernel's
+# seeded shapes: J = 64, below the SM count.
+PAIR_CASE_SIZES = {"few_nodes": (64, 1024)}
 
-    iters = 32
-    layout, acc, rhs, u, x0 = example_pair_system(j, p, SEED, device=dev)
+
+def _pair_check(dev, name, system, layout, acc, rhs, u, j, x0, kernel, plain,
+                round_acc, timed=False):
+    """A pair-sparse CG kernel (K1 or K1b) against its plain version on one
+    pair system, 32 iterations: relative error, residuals, three launches
+    compared bitwise, and the list entries of the fullest CTA (with how many
+    of them overflow its shared memory).  With ``timed``: the kernel's time
+    (as every kernel is timed here), its device time alone at 32 and at 0
+    iterations and at 32 and 0 on the same system with every pair a sink
+    (an iteration's floor: barriers and sums), the host's time to enqueue
+    it, the plain version's time, and the bound."""
+    from super_tpu_torch.core.lm import pairs_band_system
+    from super_tpu_torch.kernels.pcg import pair_cg_capacity, pair_cg_entries
+
+    chunked = name == "k1b"
     args = pairs_band_system(layout, acc, rhs, u, j, x0)
-    x_k = kernel(*args, iterations=iters)
-    x_p = plain(*args, iterations=iters)
+    x_k = kernel(*args, iterations=PAIR_ITERS)
+    x_k2 = kernel(*args, iterations=PAIR_ITERS)
+    x_k3, entries = pair_cg_entries(chunked, *args, iterations=PAIR_ITERS)
+    x_p = plain(*args, iterations=PAIR_ITERS)
     torch.cuda.synchronize()
+    bitwise = bool(torch.equal(x_k, x_k2) and torch.equal(x_k, x_k3))
 
     # The system each version solves (K1b's with its blocks in bf16), for
     # the residuals.
@@ -128,38 +167,74 @@ def _pair_cg_phase(dev, name, j, p, kernel, plain, round_acc):
     rel = err / float(torch.max(torch.abs(x_p)))
     res_k, res_p = resid(x_k), resid(x_p)
     del a
-    ms = cuda_ms(lambda: kernel(*args, iterations=iters), reps=20)
-    plain_ms = cuda_ms(lambda: plain(*args, iterations=iters), reps=3)
-    # Work of this run: each valid pair costs two 7x7 block products per
-    # matvec; the preconditioner one per node; dots and updates ~10 per
-    # vector entry.  Bytes the function needs, each read once: the 49 used
-    # rows of both band tables for the valid pairs (bf16 in K1b, which
-    # computes on the rounded blocks), n1 and n2, the 49 used rows of the
-    # preconditioner table, b, x0 and u; the solution written.
     n1, n2 = args[2], args[3]
-    p_valid = int(((n1 < j) & (n2 < j)).sum())
-    band = 2 if name == "k1b" else 4
-    flops = (iters + 1) * (2 * 2 * 49 * p_valid + 2 * 49 * j + 10 * 7 * j)
-    nbytes = (2 * 49 * p_valid * band + 2 * p * 4 + 49 * j * 4
-              + 3 * 7 * j * 4 + 4)
-    b_ms, b_by = bound(nbytes, flops)
-    # What the design reads from L2 instead, per matvec: both pair tables
-    # and the per-pair products written and read back (8 floats a pair and
-    # table); per iteration the preconditioner.
-    l2_bytes = (iters + 1) * (p_valid * (2 * 49 * band + 2 * 2 * 8 * 4)
-                              + 4 * 49 * j)
+    p = n1.shape[0]
+    cap = pair_cg_capacity(chunked, j, p)
+    e_max = int(entries.max())
+    p_valid = int(((n1 >= 0) & (n1 < j) & (n2 >= 0) & (n2 < j)).sum())
+    out = dict(phase=name, system=system, j=j, p=p, pairs_valid=p_valid,
+               iterations=PAIR_ITERS, max_abs_err=err, max_rel_err=rel,
+               residual_kernel=res_k, residual_plain=res_p, bitwise=bitwise,
+               entries_max=e_max, ctas_with_entries=int((entries > 0).sum()),
+               capacity=cap, overflow=max(e_max - cap, 0))
     # The kernel is right if it agrees with the plain recurrence to f32
-    # reassociation (32 iterations): 1e-4 relative to |x|; and both solve
-    # the system to the same residual.
-    if not (math.isfinite(rel) and rel < 1e-4 and res_k < 2 * res_p + 1e-5):
-        raise RuntimeError(f"{name} disagrees: rel {rel}, residuals {res_k} "
-                           f"vs {res_p}")
-    out = dict(phase=name, j=j, p=p, iterations=iters, max_abs_err=err,
-               max_rel_err=rel, residual_kernel=res_k, residual_plain=res_p,
-               ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-               bytes=nbytes, flops=flops, l2_bytes=l2_bytes,
-               l2_gb_per_s=l2_bytes / ms / 1e6)
+    # reassociation (32 iterations): 1e-4 relative to |x|; both solve the
+    # system to the same residual; and it repeats to the bit.
+    if not (math.isfinite(rel) and rel < 1e-4 and res_k < 2 * res_p + 1e-5
+            and bitwise):
+        emit(out)
+        raise RuntimeError(f"{name} disagrees on {system}: rel {rel}, "
+                           f"residuals {res_k} vs {res_p}, bitwise {bitwise}")
+    if timed:
+        def dev_ms(a, iterations):
+            return cuda_ms(lambda: kernel(*a, iterations=iterations),
+                           reps=20, queued=True)
+
+        sinks = args[:2] + (torch.full_like(n1, j),) * 2 + args[4:]
+        ms = cuda_ms(lambda: kernel(*args, iterations=PAIR_ITERS), reps=20)
+        ms_dev, ms0 = dev_ms(args, PAIR_ITERS), dev_ms(args, 0)
+        floor = (dev_ms(sinks, PAIR_ITERS) - dev_ms(sinks, 0)) / PAIR_ITERS
+        enqueue_ms = host_ms(lambda: kernel(*args, iterations=PAIR_ITERS),
+                             reps=20)
+        plain_ms = cuda_ms(lambda: plain(*args, iterations=PAIR_ITERS), reps=3)
+        # Work of this run: each valid pair costs two 7x7 block products
+        # per matvec; the preconditioner one per node; dots and updates ~10
+        # per vector entry.  Bytes the function needs, each read once: the
+        # 49 used rows of both band tables for the valid pairs (bf16 in K1b,
+        # which computes on the rounded blocks), n1 and n2, the 49 used rows
+        # of the preconditioner table, b, x0 and u; the solution written.
+        band = 2 if name == "k1b" else 4
+        flops = (PAIR_ITERS + 1) * (2 * 2 * 49 * p_valid + 2 * 49 * j
+                                    + 10 * 7 * j)
+        nbytes = (2 * 49 * p_valid * band + 2 * p * 4 + 49 * j * 4
+                  + 3 * 7 * j * 4 + 4)
+        b_ms, b_by = bound(nbytes, flops)
+        out.update(ms=ms, ms_device=ms_dev, ms_iterations0_device=ms0,
+                   ms_per_iteration=(ms_dev - ms0) / PAIR_ITERS,
+                   ms_per_iteration_all_sinks=floor,
+                   host_enqueue_ms=enqueue_ms, plain_ms=plain_ms,
+                   bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops)
     emit(out)
+    return out
+
+
+def _pair_cg_phase(dev, name, j, p, kernel, plain, round_acc):
+    """A pair-sparse CG kernel (K1 or K1b) against its plain version: timed
+    on a seeded well-posed system of J nodes and P pairs, all in use, then
+    checked on the adversarial systems (core/lm.py:adversarial_pair_system).
+    Returns the seeded system's record."""
+    from super_tpu_torch.core.lm import PAIR_CASES, adversarial_pair_system, \
+        example_pair_system
+
+    layout, acc, rhs, u, x0 = example_pair_system(j, p, SEED, device=dev)
+    out = _pair_check(dev, name, "seeded", layout, acc, rhs, u, j, x0, kernel,
+                      plain, round_acc, timed=True)
+    for case in PAIR_CASES:
+        jc, pc = PAIR_CASE_SIZES.get(case, (j, p))
+        layout, acc, rhs, u, x0 = adversarial_pair_system(case, jc, pc, SEED,
+                                                          device=dev)
+        _pair_check(dev, name, case, layout, acc, rhs, u, jc, x0, kernel,
+                    plain, round_acc)
     return out
 
 
@@ -174,6 +249,7 @@ def phase_k1(dev):
 def phase_k1b(dev):
     """K1b at the dense graph's shapes: J = 1216, P = 19,456."""
     from super_tpu_torch.kernels.pcg import (
+        _bf16,
         pairs_cg_chunked,
         pairs_cg_chunked_plain,
         uses_chunked,
@@ -181,9 +257,36 @@ def phase_k1b(dev):
 
     if not uses_chunked(1216, 19456):
         raise RuntimeError("the dense graph's pair system must take K1b")
-    return _pair_cg_phase(
-        dev, "k1b", 1216, 19456, pairs_cg_chunked, pairs_cg_chunked_plain,
-        lambda acc: acc.to(torch.bfloat16).to(torch.float32))
+    return _pair_cg_phase(dev, "k1b", 1216, 19456, pairs_cg_chunked,
+                          pairs_cg_chunked_plain, _bf16)
+
+
+def phase_pair_path(dev, name, cfg, ctx, assoc, intr):
+    """The path's pair kernel (K1 on the headline, K1b on the dense graph)
+    on the path's own band system: frame 1's normal equations at beta0 with
+    the initial damping, as the first LM trip solves them."""
+    from super_tpu_torch.core.losses import assemble_normal_equations
+    from super_tpu_torch.geometry.quaternion import identity_dq
+    from super_tpu_torch.kernels.pcg import (
+        _bf16,
+        pairs_cg,
+        pairs_cg_chunked,
+        pairs_cg_chunked_plain,
+        pairs_cg_plain,
+        uses_chunked,
+    )
+
+    j = cfg.capacity.node_capacity
+    beta = identity_dq(dev)[None].repeat(j, 1)
+    jtj, jtr, _ = assemble_normal_equations(cfg, ctx, beta, intr, assoc)
+    u = torch.full((), cfg.solver.lm_damping_init, device=dev)
+    chunked = uses_chunked(j, jtj.shape[0])
+    kernel, plain, round_acc = ((pairs_cg_chunked, pairs_cg_chunked_plain,
+                                 _bf16) if chunked else
+                                (pairs_cg, pairs_cg_plain, lambda a: a))
+    return _pair_check(dev, "k1b" if chunked else "k1", name, ctx.layout,
+                       jtj, jtr, u, j, None, kernel, plain, round_acc,
+                       timed=True)
 
 
 def phase_k3(dev):
@@ -529,15 +632,18 @@ def main() -> int:
     cfg, intr, frames, launches = phase_main(dev)
     state = init_tracker(cfg, frames[0])
     ctx = prepare_lm(cfg, state.surfels, state.graph, frames[1])
-    k2 = phase_k2(dev, cfg, ctx, associate(cfg, ctx, intr))
+    assoc = associate(cfg, ctx, intr)
+    k2 = phase_k2(dev, cfg, ctx, assoc)
+    phase_pair_path(dev, "path_main", cfg, ctx, assoc, intr)
     del state, ctx
     phase_reference(dev, cfg, intr, frames)
     dense_cfg, dense_launches = phase_dense(dev, intr, frames)
     state = init_tracker(dense_cfg, frames[0])
     ctx = prepare_lm(dense_cfg, state.surfels, state.graph, frames[1])
-    phase_k2(dev, dense_cfg, ctx, associate(dense_cfg, ctx, intr),
-             name="k2_dense")
-    del state, ctx
+    assoc = associate(dense_cfg, ctx, intr)
+    phase_k2(dev, dense_cfg, ctx, assoc, name="k2_dense")
+    phase_pair_path(dev, "path_dense", dense_cfg, ctx, assoc, intr)
+    del state, ctx, assoc
     solver_launches = phase_solvers(dev, intr, frames)
     phase_path_reference(intr, frames)
 

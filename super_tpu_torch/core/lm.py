@@ -116,12 +116,83 @@ def example_pair_system(j_cap: int, pair_cap: int, seed: int = 0,
             keys.add((min(a, b), max(a, b)))
     pairs = sorted(keys | {(i, i) for i in range(j_cap)})
     pairs.append((j_cap, j_cap))                        # the sink
+    return _pair_system(np.asarray(pairs, np.int64), j_cap, rng, device)
+
+
+# The pair systems of adversarial_pair_system.
+PAIR_CASES = ("shuffled", "hub", "duplicates", "few_nodes")
+
+
+def adversarial_pair_system(case: str, j_cap: int, pair_cap: int,
+                            seed: int = 0, device="cuda"):
+    """A well-posed pair system from a seed with a layout that tests how a
+    pair CG splits its work, in the form of :func:`example_pair_system`:
+
+    - ``"shuffled"``: the pairs in random order and orientation, with sink
+      slots between them (a sink id on one side or both) holding nonzero
+      blocks that must be ignored;
+    - ``"hub"``: node J // 2 paired with every other node, plus repeated
+      pairs on it up to a third of the table, so that its list alone is
+      longer than one CTA keeps in shared memory;
+    - ``"duplicates"``: every off-diagonal pair drawn from a small pool,
+      each (n1, n2) about four times;
+    - ``"few_nodes"``: the example's layout; meant for J below the number
+      of SMs (J = 64), so that some CTAs own no node.
+    """
+    rng = np.random.default_rng(seed)
+    n_off = pair_cap - 1 - j_cap
+    diag = [(i, i) for i in range(j_cap)]
+
+    def random_pairs(n, exclude=-1):
+        a = rng.integers(0, j_cap, 4 * n + 16)
+        b = rng.integers(0, j_cap, 4 * n + 16)
+        ok = (a != b) & (a != exclude) & (b != exclude)
+        return list(zip(a[ok][:n].tolist(), b[ok][:n].tolist()))
+
+    if case == "shuffled":
+        n_sink = pair_cap // 16
+        sinks = [(j_cap, j_cap), (j_cap, 0), (j_cap - 1, j_cap)]
+        sinks = (sinks * n_sink)[:n_sink]
+        pairs = diag + random_pairs(n_off + 1 - n_sink) + sinks
+        pairs = [pairs[i] for i in rng.permutation(len(pairs))]
+    elif case == "hub":
+        hub = j_cap // 2
+        spokes = [(hub, j) if j % 2 else (j, hub)
+                  for j in range(j_cap) if j != hub]
+        extra = rng.integers(0, j_cap - 1, max(pair_cap // 3 - len(spokes), 0))
+        extra = [(hub, int(j) + (j >= hub)) for j in extra]
+        rest = random_pairs(n_off - len(spokes) - len(extra), exclude=hub)
+        pairs = sorted(diag + spokes + extra + rest)
+    elif case == "duplicates":
+        pool = random_pairs(max(n_off // 4, 1))
+        pairs = sorted(diag + [pool[i] for i in
+                               rng.integers(0, len(pool), n_off)])
+    elif case == "few_nodes":
+        return example_pair_system(j_cap, pair_cap, seed, device)
+    else:
+        raise ValueError(f"unknown pair system {case!r}")
+    if case != "shuffled":
+        pairs.append((j_cap, j_cap))
     pairs = np.asarray(pairs, np.int64)
+    if pairs.shape != (pair_cap, 2):
+        raise ValueError(f"{case}: J={j_cap}, P={pair_cap} leaves no room "
+                         f"for the off-diagonal pairs")
+    return _pair_system(pairs, j_cap, rng, device, sink_blocks=True)
+
+
+def _pair_system(pairs, j_cap: int, rng, device, sink_blocks=False):
+    """Blocks, right-hand side, damping and warm start for the (P, 2) node
+    pairs: off-diagonal blocks small and random, each node's diagonal block
+    (the first (j, j) pair) dominant over all its pairs, sink blocks random
+    if ``sink_blocks`` (else zero)."""
+    pair_cap = len(pairs)
+    valid = (pairs < j_cap).all(axis=1)
     acc = np.zeros((pair_cap, 7, 7), np.float64)
-    off = (pairs[:, 0] != pairs[:, 1]) & (pairs[:, 0] < j_cap)
+    off = (pairs[:, 0] != pairs[:, 1]) & valid
     acc[off] = 0.1 * rng.normal(size=(int(off.sum()), 7, 7))
     deg = np.bincount(pairs[off].reshape(-1), minlength=j_cap)
-    diag = np.flatnonzero(pairs[:, 0] == pairs[:, 1])[:j_cap]
+    diag = np.flatnonzero(pairs[:, 0] == pairs[:, 1])
+    diag = diag[np.unique(pairs[diag, 0], return_index=True)[1]][:j_cap]
     m = rng.normal(size=(j_cap, 7, 7))
     d = m @ m.transpose(0, 2, 1) / 7 + (deg + 1.0)[:, None, None] * np.eye(7)
     acc[diag] = 0.5 * d                                 # halved convention
@@ -130,9 +201,11 @@ def example_pair_system(j_cap: int, pair_cap: int, seed: int = 0,
         diag_rank=torch.as_tensor(diag.astype(np.int32), device=device))
     f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32),  # noqa: E731
                                     device=device)
-    return (layout, f32(acc.reshape(pair_cap, 49)),
-            f32(rng.normal(size=7 * j_cap)), f32(0.05),
-            f32(0.01 * rng.normal(size=7 * j_cap)))
+    rhs, u = f32(rng.normal(size=7 * j_cap)), f32(0.05)
+    x0 = f32(0.01 * rng.normal(size=7 * j_cap))
+    if sink_blocks:
+        acc[~valid] = rng.normal(size=(int((~valid).sum()), 7, 7))
+    return layout, f32(acc.reshape(pair_cap, 49)), rhs, u, x0
 
 
 def _pairs_fused_solve(cfg: SuPerConfig, layout, acc, rhs, u, j_cap: int,

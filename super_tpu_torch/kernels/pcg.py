@@ -20,11 +20,14 @@ launches its kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 # Shared memory one thread block may use on Hopper (bytes).
 _SMEM_MAX = 232448
+# K1 and K1b take J and P below this (csrc/pairs_cg.cu: 32-bit entry codes).
+_PAIR_LIMIT = 1 << 24
 # Pair tables whose two (jp, P) f32 one-hot matrices would pass this many
 # bytes take K1b, as in the JAX package (pcg.py:_PAIRS_PERSISTENT_OH_MAX);
 # tests may lower it.
@@ -121,11 +124,48 @@ def pairs_cg_plain(blk_pad, blkt_pad, n1, n2, minv_pad, b_fm, u, x0_fm=None,
     return x[:7]
 
 
+@functools.cache
+def _pair_lib():
+    """csrc/pairs_cg.cu's library, built on first use, its C signatures
+    declared once."""
+    from super_tpu_torch.kernels.build import load
+
+    lib = load("pairs_cg")
+    vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for fn, args, res in (
+            (lib.pairs_cg_blocks, [], ci),
+            (lib.pairs_cg_capacity, [ci, ci, ci], ci),
+            (lib.pairs_cg_float_scratch, [ci], cll),
+            (lib.pairs_cg_int_scratch, [ci, ci], cll),
+            (lib.pairs_cg_launch, [vp] * 11 + [ci] * 4 + [vp], ci)):
+        fn.argtypes, fn.restype = args, res
+    return lib
+
+
+@functools.cache
+def _pair_sizes(chunked: bool, j: int, p: int):
+    """(capacity, float scratch, int scratch, CTAs) of K1 (``chunked``
+    false) or K1b at J nodes and P pairs, asked of the library once."""
+    lib = _pair_lib()
+    return (lib.pairs_cg_capacity(j, p, int(chunked)),
+            lib.pairs_cg_float_scratch(j), lib.pairs_cg_int_scratch(j, p),
+            lib.pairs_cg_blocks())
+
+
+def pair_cg_capacity(chunked: bool, j: int, p: int) -> int:
+    """List entries (pair blocks) one CTA of K1 (``chunked`` false) or K1b
+    keeps in shared memory at J nodes and P pairs; the rest it reads from
+    global memory.  Negative where the CTAs' node state would not fit."""
+    return _pair_sizes(chunked, j, p)[0]
+
+
 def _launch_pair_cg(kernel, chunked, blk_pad, blkt_pad, n1, n2, minv_pad,
-                    b_fm, u, x0_fm, iterations):
+                    b_fm, u, x0_fm, iterations, with_entries=False):
     """Check the arguments of K1 (``chunked`` false) or K1b and launch it
-    from csrc/pairs_cg.cu on the current stream; counts the launch on
-    ``kernel``.  K1b gets the band tables rounded to bf16."""
+    from csrc/pairs_cg.cu on the current stream, one CTA per SM; counts the
+    launch on ``kernel``.  Both take the f32 band tables; K1b rounds the
+    pair blocks to bf16 in the kernel.  With ``with_entries`` also returns
+    each CTA's count of list entries (a device tensor)."""
     name = kernel.__name__
     j = b_fm.shape[1]
     p = blk_pad.shape[1]
@@ -134,39 +174,42 @@ def _launch_pair_cg(kernel, chunked, blk_pad, blkt_pad, n1, n2, minv_pad,
         x0_fm = torch.zeros_like(b_fm)
     u = _check_pair_args(name, blk_pad, blkt_pad, n1, n2, minv_pad, b_fm, u,
                          x0_fm)
-
-    from super_tpu_torch.kernels.build import load
-
-    lib = load("pairs_cg")
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.pairs_cg_smem_bytes.argtypes = [ci, ci, ci]
-    lib.pairs_cg_smem_bytes.restype = ctypes.c_longlong
-    smem = lib.pairs_cg_smem_bytes(j, p, int(chunked))
-    if smem > _SMEM_MAX:
-        raise ValueError(f"{name}: J={j}, P={p} needs {smem} B of shared "
-                         f"memory (> {_SMEM_MAX})")
-    lib.pairs_cg_launch.argtypes = [vp] * 11 + [ci] * 4 + [vp]
-    lib.pairs_cg_launch.restype = ci
-    if chunked:
-        blk_pad, blkt_pad = (t.to(torch.bfloat16)
-                             for t in (blk_pad, blkt_pad))
+    if not (0 < j < _PAIR_LIMIT and p < _PAIR_LIMIT):
+        raise ValueError(f"{name}: needs 0 < J and J, P < {_PAIR_LIMIT}, got "
+                         f"J={j}, P={p}")
+    capacity, n_float, n_int, ctas = _pair_sizes(chunked, j, p)
+    if capacity < 0:
+        raise ValueError(f"{name}: J={j}, P={p}: the node state of "
+                         f"(2 P + J) / SMs nodes passes a CTA's shared memory")
     args = [t.contiguous() for t in (blk_pad, blkt_pad, n1, n2, minv_pad,
                                      b_fm, x0_fm, u)]
     x = torch.empty((7, j), dtype=torch.float32, device=dev)
     # Scratch and the contiguous copies may be freed on return while the
     # kernel still runs: the caching allocator hands their memory only to
     # work queued after it on this stream.
-    t_scratch = torch.empty((2, p, 8), dtype=torch.float32, device=dev)
-    i_scratch = torch.empty((2 * p + 2 * (j + 1) if chunked else 1,),
-                            dtype=torch.int32, device=dev)
+    f_scratch = torch.empty((n_float,), dtype=torch.float32, device=dev)
+    i_scratch = torch.empty((n_int,), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.pairs_cg_launch(*(t.data_ptr() for t in args), x.data_ptr(),
-                             t_scratch.data_ptr(), i_scratch.data_ptr(), j, p,
-                             iterations, int(chunked), stream)
+    rc = _pair_lib().pairs_cg_launch(
+        *(t.data_ptr() for t in args), x.data_ptr(), f_scratch.data_ptr(),
+        i_scratch.data_ptr(), j, p, iterations, int(chunked), stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
     kernel.launches += 1
+    if with_entries:
+        return x, i_scratch[n_int - ctas:]
     return x
+
+
+def pair_cg_entries(chunked: bool, blk_pad, blkt_pad, n1, n2, minv_pad, b_fm,
+                    u, x0_fm=None, *, iterations: int = 32):
+    """Launch K1 (``chunked`` false) or K1b once on CUDA tensors, as
+    :func:`pairs_cg` does; returns the solution and each CTA's count of
+    list entries, one int32 per SM."""
+    kernel = pairs_cg_chunked if chunked else pairs_cg
+    return _launch_pair_cg(kernel, chunked, blk_pad, blkt_pad, n1, n2,
+                           minv_pad, b_fm, u, x0_fm, iterations,
+                           with_entries=True)
 
 
 def pairs_cg(blk_pad, blkt_pad, n1, n2, minv_pad, b_fm, u, x0_fm=None, *,
@@ -212,8 +255,9 @@ def pairs_cg_chunked(blk_pad, blkt_pad, n1, n2, minv_pad, b_fm, u,
                      x0_fm=None, *, iterations: int = 32):
     """Kernel K1b: :func:`pairs_cg` for dense ED graphs, same arguments.
 
-    The f32 band tables are rounded to bf16 here; the kernel computes in
-    f32.  Raises for J past what one block's shared memory holds (1658).
+    The kernel rounds the f32 band tables of the pair blocks to bf16 and
+    computes in f32.  Raises for J or P of 2^24 or more, or 2 P + J past
+    what the CTAs' shared memory holds (~160,000 on 132 SMs).
     """
     if b_fm.device.type == "cpu":
         return pairs_cg_chunked_plain(blk_pad, blkt_pad, n1, n2, minv_pad,
