@@ -11,13 +11,21 @@ track_step) and checks that each went through its kernels and that its
 results are right:
 
 - main: the headline workload, ``lm_workload_config(480, 640, 30)``
-  (J = 384, pair-sparse CG by K1, tuple Grams by K2);
+  (J = 384, pair-sparse CG by K1, the data term's tuple Grams by K2 with
+  the rows computed in the kernel, ``data_gram``);
 - dense: the dense ED graph, ``lm_workload_config(480, 640, 16)``
-  (J = 1216, pair-sparse CG by K1b, K2);
+  (J = 1216, pair-sparse CG by K1b, ``data_gram``);
 - solvers: the headline workload with the dense-matrix solvers,
-  ``linear_solver="pcg_pallas"`` (K3, K2), then ``"cholesky"`` and ``"pcg"``.
+  ``linear_solver="pcg_pallas"`` (K3, ``data_gram``), then ``"cholesky"``
+  and ``"pcg"``.
 
-K1 and K1b (one cooperative grid over all SMs each) are also checked on
+K2's two forms, one template (rows from memory, ``tuple_gram``, and rows
+from the data term, ``data_gram``), are each checked on the headline's and
+the dense graph's frame-1 context (phases ``k2``, ``k2_dense``,
+``k2_fused``, ``k2_fused_dense``): two launches compared bitwise, Grams
+exactly symmetric; the fused phases also print the distribution of tuple
+run lengths.  K1 and K1b (one cooperative grid over all SMs each) are also
+checked on
 the adversarial pair systems of ``core/lm.py:adversarial_pair_system``
 (shuffled pairs with sinks between them, a hub node, duplicate pairs,
 J = 64), each launch pair compared bitwise, and timed on the band system of
@@ -316,6 +324,8 @@ def phase_k3(dev):
     rel = err / float(torch.max(torch.abs(x_p)))
     res_k, res_p = resid(x_k), resid(x_p)
     ms = cuda_ms(lambda: dense_cg(a_hat, b_hat, iterations=iters), reps=50)
+    enqueue_ms = host_ms(lambda: dense_cg(a_hat, b_hat, iterations=iters),
+                         reps=20)
     plain_ms = cuda_ms(lambda: dense_cg_plain(a_hat, b_hat,
                                               iterations=iters), reps=10)
     dim = a_hat.shape[0]
@@ -334,7 +344,8 @@ def phase_k3(dev):
                            f"vs {res_p}")
     out = dict(phase="k3", j=j, dim=dim, dim_padded=n, iterations=iters,
                max_abs_err=err, max_rel_err=rel, residual_kernel=res_k,
-               residual_plain=res_p, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+               residual_plain=res_p, ms=ms, host_enqueue_ms=enqueue_ms,
+               plain_ms=plain_ms, bound_ms=b_ms,
                bound_by=b_by, bytes=nbytes, flops=flops, l2_bytes=l2_bytes,
                l2_gb_per_s=l2_bytes / ms / 1e6)
     emit(out)
@@ -357,14 +368,18 @@ def phase_k2(dev, cfg, ctx, assoc, name="k2"):
     kw = dict(tuple_cap=ctx.layout.tuple_nodes.shape[0],
               block=cfg.solver.assembly_pad_group)
     g_k, j_k = tuple_gram(h, r, bt, **kw)
+    g_k2, j_k2 = tuple_gram(h, r, bt, **kw)
     g_p, j_p = tuple_gram_plain(h, r, bt, **kw)
     torch.cuda.synchronize()
+    bitwise = bool(torch.equal(g_k, g_k2) and torch.equal(j_k, j_k2))
     err = max(float(torch.max(torch.abs(g_k - g_p))),
               float(torch.max(torch.abs(j_k - j_p))))
     scale = max(float(torch.max(torch.abs(g_p))),
                 float(torch.max(torch.abs(j_p))))
     sym = float(torch.max(torch.abs(g_k - g_k.transpose(1, 2))))
     ms = cuda_ms(lambda: tuple_gram(h, r, bt, **kw), reps=20)
+    ms_dev = cuda_ms(lambda: tuple_gram(h, r, bt, **kw), reps=20, queued=True)
+    enqueue_ms = host_ms(lambda: tuple_gram(h, r, bt, **kw), reps=20)
     plain_ms = cuda_ms(lambda: tuple_gram_plain(h, r, bt, **kw), reps=5)
     np_cap = h.shape[0]
     t_cap = kw["tuple_cap"]
@@ -373,18 +388,126 @@ def phase_k2(dev, cfg, ctx, assoc, name="k2"):
     b_ms, b_by = bound(nbytes, flops)
     # f32 sums of the same products in other orders (64 rows, then the
     # blocks of a tuple): 1e-5 relative to the largest entry.  The kernel
-    # forms (i, j) and (j, i) by one chain: its Grams are exactly symmetric.
-    if not (math.isfinite(err) and err <= 1e-5 * scale and sym == 0.0):
+    # writes (i, j) and (j, i) from one sum: its Grams are exactly
+    # symmetric; its sums have fixed orders: two launches agree bitwise.
+    if not (math.isfinite(err) and err <= 1e-5 * scale and sym == 0.0
+            and bitwise):
         raise RuntimeError(f"K2 disagrees: err {err} (scale {scale}), "
-                           f"asymmetry {sym}")
+                           f"asymmetry {sym}, bitwise {bitwise}")
     # The pair table this frame fills (the pair CG's P in use).
     j_cap = cfg.capacity.node_capacity
     pairs = int((ctx.layout.pair_dest[:, 0] < 7 * j_cap).sum())
     out = dict(phase=name, np=np_cap, tuples=t_cap, pairs_in_use=pairs,
                blocks=int(bt.numel()), max_abs_err=err, scale=scale,
-               asymmetry=sym, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+               asymmetry=sym, bitwise=bitwise, ms=ms, ms_device=ms_dev,
+               host_enqueue_ms=enqueue_ms, plain_ms=plain_ms, bound_ms=b_ms,
                bound_by=b_by, bytes=nbytes, flops=flops)
     emit(out)
+    return out
+
+
+# Operations of the data term per slot whose masks are both set, counted
+# from the kernel's row math (csrc/tuple_gram.cu, store_rows: the blended
+# warp, the residual and the 28 weighted row entries of 4 anchors) and from
+# the Gram's upper triangle and jtr column (406 + 28 multiply-adds).
+ROW_FLOPS = 470
+GRAM_FLOPS = 2 * (28 * 29 // 2 + 28)
+
+
+def _run_lengths(layout, ctx, assoc, block):
+    """The layout's G-block runs per visited tuple (sink excluded), the
+    sink's blocks and the blocks whose slots are all masked."""
+    bt = layout.block_tuple.long()
+    t_cap = layout.tuple_nodes.shape[0]
+    live = bt < t_cap - 1
+    runs = torch.bincount(bt[live], minlength=t_cap)
+    runs = runs[runs > 0].double()
+    masked = ~(ctx.sf_mask & assoc.mask).reshape(-1, block).any(dim=1)
+    q = torch.quantile(runs, torch.tensor([0.5, 0.9, 0.99], device=runs.device,
+                                          dtype=runs.dtype)).tolist()
+    return dict(tuples_visited=int(runs.numel()),
+                live_blocks=int(live.sum()),
+                sink_blocks=int((~live).sum()),
+                live_blocks_all_masked=int((masked & live).sum()),
+                run_blocks_min=int(runs.min()), run_blocks_median=q[0],
+                run_blocks_p90=q[1], run_blocks_p99=q[2],
+                run_blocks_max=int(runs.max()))
+
+
+def phase_k2_fused(dev, cfg, ctx, assoc, name="k2_fused"):
+    """K2 with the rows computed in the kernel (``data_gram``) against its
+    plain version (``data_rows``, then ``tuple_gram_plain``) on a path's
+    own frame-1 context and association, at a perturbed beta."""
+    from super_tpu_torch.geometry.quaternion import identity_dq
+    from super_tpu_torch.kernels.gram import _scratch_floats, data_gram, \
+        data_gram_plain
+
+    gen = torch.Generator(device="cpu").manual_seed(SEED)
+    j_cap = cfg.capacity.node_capacity
+    beta = identity_dq(dev)[None].repeat(j_cap, 1)
+    beta = beta + 1e-3 * torch.randn((j_cap, 7), generator=gen).to(dev)
+    weight = cfg.losses.sf_point_plane_weight
+    g = cfg.solver.assembly_pad_group
+
+    def kernel():
+        return data_gram(ctx, beta, weight, assoc, block=g)
+
+    def plain():
+        return data_gram_plain(ctx, beta, weight, assoc, block=g)
+
+    out_k, out_k2, out_p = kernel(), kernel(), plain()
+    torch.cuda.synchronize()
+    (g_k, j_k, c_k), (g_p, j_p, c_p) = out_k, out_p
+    bitwise = all(torch.equal(a, b) for a, b in zip(out_k, out_k2))
+    g_scale = float(torch.max(torch.abs(g_p)))
+    j_scale = float(torch.max(torch.abs(j_p)))
+    g_err = float(torch.max(torch.abs(g_k - g_p)))
+    j_err = float(torch.max(torch.abs(j_k - j_p)))
+    cost_rel = abs(float(c_k) - float(c_p)) / float(c_p)
+    sym = float(torch.max(torch.abs(g_k - g_k.transpose(1, 2))))
+    ms = cuda_ms(kernel, reps=20)
+    ms_dev = cuda_ms(kernel, reps=20, queued=True)
+    enqueue_ms = host_ms(kernel, reps=20)
+    plain_ms = cuda_ms(plain, reps=3)
+
+    # Bytes and operations this frame's data needs.  Every slot of a live
+    # (non-sink) block is read as far as its masks: sf_mask, then the
+    # association's mask where sf_mask is set, then its point, anchor
+    # weights, target point and normal (52 bytes) where both are.
+    # block_tuple and, for each visited tuple, its 4 node ids, their
+    # 7-parameter betas and 12 anchor coordinates; the Grams, jtr and the
+    # cost written once.
+    layout = ctx.layout
+    t_cap = layout.tuple_nodes.shape[0]
+    runs = _run_lengths(layout, ctx, assoc, g)
+    live_slots = runs["live_blocks"] * g
+    sf = ctx.sf_mask.reshape(-1, g)[:runs["live_blocks"]]
+    both = sf & assoc.mask.reshape(-1, g)[:runs["live_blocks"]]
+    n_sf, n_both = int(sf.sum()), int(both.sum())
+    nbytes = (live_slots + n_sf + 52 * n_both + 4 * layout.block_tuple.numel()
+              + runs["tuples_visited"] * (4 + 28 + 12) * 4
+              + t_cap * (28 * 28 + 28) * 4 + 4)
+    flops = n_both * (ROW_FLOPS + GRAM_FLOPS + 2)
+    b_ms, b_by = bound(nbytes, flops)
+    ctas = _scratch_floats(True) // (2 * (28 * 28 + 28) + 1)
+    out = dict(phase=name, np=ctx.sf_mask.numel(), tuples=t_cap, block=g,
+               slots_live=live_slots, slots_masked_in=n_both, ctas=ctas,
+               blocks_per_cta=runs["live_blocks"] / ctas, **runs,
+               gram_max_abs_err=g_err, gram_scale=g_scale,
+               jtr_max_abs_err=j_err, jtr_scale=j_scale,
+               max_abs_err=max(g_err, j_err), cost_rel_err=cost_rel,
+               asymmetry=sym, bitwise=bitwise, ms=ms, ms_device=ms_dev,
+               host_enqueue_ms=enqueue_ms, plain_ms=plain_ms, bound_ms=b_ms,
+               bound_by=b_by, bytes=nbytes, flops=flops)
+    emit(out)
+    # The same rows summed in other orders (f32, fused multiply-adds in the
+    # row math): Gram and jtr within 1e-5 of their largest entries, the
+    # cost within 1e-5 relative; exactly symmetric; bitwise repeatable.
+    if not (math.isfinite(g_err) and math.isfinite(j_err)
+            and g_err <= 1e-5 * g_scale and j_err <= 1e-5 * j_scale
+            and cost_rel <= 1e-5 and sym == 0.0 and bitwise):
+        raise RuntimeError(f"{name}: data_gram disagrees with its plain "
+                           f"version: {out}")
     return out
 
 
@@ -428,7 +551,8 @@ def _launch_counts():
     from super_tpu_torch.kernels import gram, pcg
 
     return {"pairs_cg": pcg.pairs_cg, "pairs_cg_chunked": pcg.pairs_cg_chunked,
-            "tuple_gram": gram.tuple_gram, "dense_cg": pcg.dense_cg}
+            "tuple_gram": gram.tuple_gram, "data_gram": gram.data_gram,
+            "dense_cg": pcg.dense_cg}
 
 
 def _run_path(name, cfg, intr, frames, per_trip):
@@ -475,7 +599,8 @@ def _run_path(name, cfg, intr, frames, per_trip):
 
 
 def phase_main(dev):
-    """The main path at 480 x 640: K1 and K2 once per LM trip."""
+    """The main path at 480 x 640: K1 and K2 (``data_gram``) once per LM
+    trip."""
     from super_tpu_torch.config import workload_config
     from super_tpu_torch.data.synthetic import default_intrinsics
 
@@ -487,33 +612,33 @@ def phase_main(dev):
     emit(dict(phase="setup", frames=len(frames),
               seconds=time.perf_counter() - t0))
     launches = _run_path("main", cfg, intr, frames,
-                         ("pairs_cg", "tuple_gram"))
+                         ("pairs_cg", "data_gram"))
     return cfg, intr, frames, launches
 
 
 def phase_dense(dev, intr, frames):
     """Path A, the dense ED graph (mesh step 16, J = 1216): K1b and K2
-    once per LM trip, K1 never.  The synthetic frames do not depend on the
-    mesh step, so the main path's are reused."""
+    (``data_gram``) once per LM trip, K1 never.  The synthetic frames do
+    not depend on the mesh step, so the main path's are reused."""
     from super_tpu_torch.config import workload_config
 
     cfg = workload_config("dense16")
     launches = _run_path("dense", cfg, intr, frames[:PATH_FRAMES + 1],
-                         ("pairs_cg_chunked", "tuple_gram"))
+                         ("pairs_cg_chunked", "data_gram"))
     return cfg, launches
 
 
 def phase_solvers(dev, intr, frames):
     """Path B, the dense-matrix solvers on the headline workload: K3 and K2
-    once per LM trip with "pcg_pallas"; then "cholesky" and "pcg" (K2
-    only) for one frame each."""
+    (``data_gram``) once per LM trip with "pcg_pallas"; then "cholesky" and
+    "pcg" (K2 only) for one frame each."""
     from super_tpu_torch.config import workload_config
 
     launches = _run_path("solvers", workload_config("pcg_pallas"), intr,
-                         frames[:PATH_FRAMES + 1], ("dense_cg", "tuple_gram"))
+                         frames[:PATH_FRAMES + 1], ("dense_cg", "data_gram"))
     for solver in ("cholesky", "pcg"):
         _run_path(f"solvers_{solver}", workload_config(solver), intr,
-                  frames[:2], ("tuple_gram",))
+                  frames[:2], ("data_gram",))
     return launches
 
 
@@ -634,6 +759,7 @@ def main() -> int:
     ctx = prepare_lm(cfg, state.surfels, state.graph, frames[1])
     assoc = associate(cfg, ctx, intr)
     k2 = phase_k2(dev, cfg, ctx, assoc)
+    k2_fused = phase_k2_fused(dev, cfg, ctx, assoc)
     phase_pair_path(dev, "path_main", cfg, ctx, assoc, intr)
     del state, ctx
     phase_reference(dev, cfg, intr, frames)
@@ -642,6 +768,7 @@ def main() -> int:
     ctx = prepare_lm(dense_cfg, state.surfels, state.graph, frames[1])
     assoc = associate(dense_cfg, ctx, intr)
     phase_k2(dev, dense_cfg, ctx, assoc, name="k2_dense")
+    phase_k2_fused(dev, dense_cfg, ctx, assoc, name="k2_fused_dense")
     phase_pair_path(dev, "path_dense", dense_cfg, ctx, assoc, intr)
     del state, ctx, assoc
     solver_launches = phase_solvers(dev, intr, frames)
@@ -658,6 +785,9 @@ def main() -> int:
         _kernel_entry("tuple_gram", "super_tpu_torch/csrc/tuple_gram.cu",
                       "super_tpu/pallas_kernels/gram.py:33",
                       launches["tuple_gram"], k2),
+        _kernel_entry("data_gram", "super_tpu_torch/csrc/tuple_gram.cu",
+                      "super_tpu/pallas_kernels/gram.py:33",
+                      launches["data_gram"], k2_fused),
         _kernel_entry("dense_cg", "super_tpu_torch/csrc/dense_cg.cu",
                       "super_tpu/pallas_kernels/pcg.py:32",
                       solver_launches["dense_cg"], k3),

@@ -3,18 +3,22 @@ tuple-mode parts of super_tpu/core/losses.py).
 
 The data term is point-to-plane ICP against a frozen per-frame association
 (``association="per_frame"``): each iteration re-linearises only the warp.
-Per LM trip the gradient rows ``h`` (Np, 28) and residuals ``r`` (Np,) are
-computed for every padded slot in one feature-major pass, and kernel K2
-reduces them to per-tuple Grams (kernels/gram.py) -- the form of the JAX
-package's ``assembly_backend="pallas"`` branch.  With the ``pairs_fused``
-solver :func:`assembly.reduce_pairs` folds the Grams into the pair-sparse
-normal equations and the graph-sized ARAP and rotation terms add their
-blocks in the same pair form; the dense solvers (``cholesky``, ``pcg``,
-``pcg_pallas``) get the (7J, 7J) matrix from :func:`assembly.expand_pairs`
-with the graph terms' blocks added into it (:func:`_add_blocks`).
+Per LM trip kernel K2 computes the gradient row and residual of every
+padded slot in registers and reduces them to per-tuple Grams
+(kernels/gram.py:data_gram) -- the JAX package's ``assembly_backend=
+"pallas"`` branch with its row math (``frozen_chunk_partial_fm``) fused
+in; :func:`data_rows` gives the same rows in plain PyTorch.  With the
+``pairs_fused`` solver :func:`assembly.reduce_pairs` folds the Grams into
+the pair-sparse normal equations and the graph-sized ARAP and rotation
+terms add their blocks in the same pair form; the dense solvers
+(``cholesky``, ``pcg``, ``pcg_pallas``) get the (7J, 7J) matrix from
+:func:`assembly.expand_pairs` with the graph terms' blocks added into it
+(:func:`_add_blocks`).
 
-All slots are computed (no stop at ``layout.live_end``): sink and padding
-slots are masked to exact zeros, and no device count has to reach the host.
+The plain versions compute all slots (no stop at ``layout.live_end``):
+sink and padding slots are masked to exact zeros.  The kernel finds the
+sink tuple's blocks on the device and skips them: no device count has to
+reach the host.
 """
 
 from __future__ import annotations
@@ -33,7 +37,7 @@ from super_tpu_torch.geometry.quaternion import (
     transform_quat_t,
     transform_quat_t_jac,
 )
-from super_tpu_torch.kernels.gram import tuple_gram
+from super_tpu_torch.kernels.gram import data_gram
 from super_tpu_torch.ops.bilinear import (
     bilinear_sample_bank_z_fm,
     build_corner_bank_z,
@@ -266,7 +270,8 @@ def data_term_cost(cfg: SuPerConfig, ctx: LMContext, beta, intr: Intrinsics,
 
 def data_rows(ctx: LMContext, beta, weight: float, assoc: Assoc):
     """Gradient rows h (Np, 28) and residuals r (Np,) of every padded slot,
-    masked to zeros: kernel K2's input."""
+    masked to zeros: what kernel K2 computes in registers
+    (kernels/gram.py:data_gram), and the input of its memory form."""
     geom = _geom(ctx)
     r, mask, beta_kfm = _frozen_residual(ctx, beta, assoc, weight, geom)
     rows = _rows_fm_batched(assoc.n, geom[1], geom[3], beta_kfm)
@@ -279,21 +284,19 @@ def data_normal_equations(cfg: SuPerConfig, ctx: LMContext, beta,
     """Data term: (jtj, jtr (J, 7), cost), with jtj the (P, 49) pair form
     for ``pairs_fused`` and the dense (7J, 7J) matrix otherwise.
 
-    Rows and residuals of every slot, then kernel K2 (tuple Grams), then the
-    pair reduction or the pair expansion.
+    Kernel K2 computes each slot's row and residual and their per-tuple
+    Grams in one pass (kernels/gram.py:data_gram), then the pair reduction
+    or the pair expansion.
     """
     sol = cfg.solver
-    h, r = data_rows(ctx, beta, weight, assoc)
-    layout = ctx.layout
-    gram, jtr_t = tuple_gram(h, r, layout.block_tuple,
-                             tuple_cap=layout.tuple_nodes.shape[0],
-                             block=sol.assembly_pad_group)
+    gram, jtr_t, cost = data_gram(ctx, beta, weight, assoc,
+                                  block=sol.assembly_pad_group)
     fold = assembly.reduce_pairs if sol.linear_solver == "pairs_fused" \
         else assembly.expand_pairs
     jtj, jtr7 = fold(
-        layout, gram, jtr_t, ctx.ed_mask.shape[0],
+        ctx.layout, gram, jtr_t, ctx.ed_mask.shape[0],
         sum_dtype=sol.gram_sum_dtype if sol.gram_sum_dtype != "f32" else None)
-    return jtj, jtr7, torch.sum(r * r)
+    return jtj, jtr7, cost
 
 
 def arap_term_residual(ctx: LMContext, beta, weight: float):

@@ -294,6 +294,30 @@ def dense_cg_plain(a, b, *, iterations: int = 32):
     return x
 
 
+@functools.cache
+def _dense_lib():
+    """csrc/dense_cg.cu's library, built on first use, its C signatures
+    declared once."""
+    from super_tpu_torch.kernels.build import load
+
+    lib = load("dense_cg")
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    for fn, args, res in (
+            (lib.dense_cg_blocks, [], ci),
+            (lib.dense_cg_smem_bytes, [ci], ctypes.c_longlong),
+            (lib.dense_cg_launch, [vp] * 5 + [ci] * 2 + [vp], ci)):
+        fn.argtypes, fn.restype = args, res
+    return lib
+
+
+@functools.cache
+def _dense_sizes(n: int):
+    """(shared memory bytes, blocks) of K3 at padded dim n, asked of the
+    library once."""
+    lib = _dense_lib()
+    return lib.dense_cg_smem_bytes(n), lib.dense_cg_blocks()
+
+
 def dense_cg(a, b, *, iterations: int = 32):
     """Plain CG on ``a x = b`` (kernel K3): a (dim, dim) f32 symmetric, b
     (dim,) f32; returns x (dim,) after ``iterations`` steps from 0.
@@ -317,30 +341,19 @@ def dense_cg(a, b, *, iterations: int = 32):
         raise ValueError(f"dense_cg: needs f32 (dim, dim) and (dim,) on one "
                          f"device, got {a.dtype} {tuple(a.shape)}, {b.dtype} "
                          f"{tuple(b.shape)} on {a.device}, {b.device}")
-
-    from super_tpu_torch.kernels.build import load
-
-    lib = load("dense_cg")
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.dense_cg_blocks.restype = ci
-    lib.dense_cg_smem_bytes.argtypes = [ci]
-    lib.dense_cg_smem_bytes.restype = ctypes.c_longlong
-    smem = lib.dense_cg_smem_bytes(n)
+    smem, blocks = _dense_sizes(n)
     if smem > _SMEM_MAX:
         raise ValueError(f"dense_cg: dim {n} needs {smem} B of shared memory "
                          f"(> {_SMEM_MAX})")
-    lib.dense_cg_launch.argtypes = [vp] * 5 + [ci] * 2 + [vp]
-    lib.dense_cg_launch.restype = ci
     a, b = a.contiguous(), b.contiguous()
     x = torch.empty((n,), dtype=torch.float32, device=a.device)
     # Freed on return while the kernel may still run: safe, see pairs_cg.
     r_scratch = torch.empty((n,), dtype=torch.float32, device=a.device)
-    part = torch.empty((2 * lib.dense_cg_blocks(),), dtype=torch.float32,
-                       device=a.device)
+    part = torch.empty((2 * blocks,), dtype=torch.float32, device=a.device)
     stream = torch.cuda.current_stream(a.device).cuda_stream
-    rc = lib.dense_cg_launch(a.data_ptr(), b.data_ptr(), x.data_ptr(),
-                             r_scratch.data_ptr(), part.data_ptr(), n,
-                             iterations, stream)
+    rc = _dense_lib().dense_cg_launch(a.data_ptr(), b.data_ptr(),
+                                      x.data_ptr(), r_scratch.data_ptr(),
+                                      part.data_ptr(), n, iterations, stream)
     if rc != 0:
         raise RuntimeError(f"dense_cg launch failed: cudaError {rc}")
     dense_cg.launches += 1

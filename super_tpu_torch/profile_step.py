@@ -13,9 +13,9 @@ mode to find any host sync in the step, then ``--frames`` frames run with
 tracing off, each timed on the host clock around a synchronised step, and
 the same number of frames under ``torch.profiler``.  Prints one JSON line:
 the card, ms per frame untraced, and from the traced run the host and
-device ms per frame of each ``step.*`` and ``lm.*`` range, the kernels'
-device ms per frame and busy share of the traced window, and the kernels
-with the most device time.
+device ms and the kernel launches per frame of each ``step.*`` and
+``lm.*`` range, the kernels' device ms and launches per frame and busy
+share of the traced window, and the kernels with the most device time.
 """
 
 from __future__ import annotations
@@ -126,7 +126,7 @@ def main():
     for name in RANGES:
         host = [e for e in prof.events()
                 if e.device_type == DeviceType.CPU and e.name == name]
-        dev_ms = 0.0
+        dev_ms, n_kernels = 0.0, 0
         for e in dev_events:
             if e.name != name:
                 continue
@@ -136,10 +136,12 @@ def main():
                     break
                 if k1 <= e.time_range.end:
                     dev_ms += k1 - k0
+                    n_kernels += 1
         ranges[name] = dict(
             calls_per_frame=len(host) / args.frames,
             host_ms=sum(e.cpu_time_total for e in host) / per,
-            device_ms=dev_ms / per)
+            device_ms=dev_ms / per,
+            kernels_per_frame=n_kernels / args.frames)
     by_name = collections.defaultdict(lambda: [0, 0.0])
     for k0, k1, kname in kernels:
         by_name[kname][0] += 1
@@ -156,6 +158,7 @@ def main():
         untraced_median_ms=statistics.median(untraced),
         traced_ms_per_frame=window_ms / args.frames,
         device_ms_per_frame=device_ms / args.frames,
+        kernels_per_frame=len(kernels) / args.frames,
         device_busy_share_traced=device_ms / window_ms,
         ranges=ranges,
         top_kernels=[dict(name=kname[:90], calls_per_frame=c / args.frames,

@@ -230,7 +230,7 @@ def chunked_runs():
                                     float(t), device="cpu")
                    for t in range(FRAMES + 1)]
         launches = (tpcg.pairs_cg.launches, tpcg.pairs_cg_chunked.launches,
-                    tgram.tuple_gram.launches)
+                    tgram.tuple_gram.launches, tgram.data_gram.launches)
         pstate = ttrack.init_tracker(pcfg, pframes[0])
         got = []
         for t in range(1, FRAMES + 1):
@@ -239,7 +239,8 @@ def chunked_runs():
             got.append(to_numpy(pouts))
         assert launches == (tpcg.pairs_cg.launches,
                             tpcg.pairs_cg_chunked.launches,
-                            tgram.tuple_gram.launches), \
+                            tgram.tuple_gram.launches,
+                            tgram.data_gram.launches), \
             "CPU tensors must take the plain versions"
     assert len(calls) == FRAMES * cfg.solver.num_iterations
     return want, got, want_nodes, pstate.graph.points.numpy(), start_nodes

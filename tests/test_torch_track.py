@@ -46,13 +46,15 @@ def runs():
     pframes = [preprocess_frame(pcfg, pintr, seq.depths[t], colors[t],
                                 float(t), device="cpu")
                for t in range(FRAMES + 1)]
-    launches = (tpcg.pairs_cg.launches, tgram.tuple_gram.launches)
+    launches = (tpcg.pairs_cg.launches, tgram.tuple_gram.launches,
+                tgram.data_gram.launches)
     pstate = ttrack.init_tracker(pcfg, pframes[0])
     got = []
     for t in range(1, FRAMES + 1):
         pstate, pouts = ttrack.track_step(pcfg, pintr, pstate, pframes[t])
         got.append(to_numpy(pouts))
-    assert launches == (tpcg.pairs_cg.launches, tgram.tuple_gram.launches), \
+    assert launches == (tpcg.pairs_cg.launches, tgram.tuple_gram.launches,
+                        tgram.data_gram.launches), \
         "CPU tensors must take the plain versions"
     return want, got, want_nodes, pstate.graph.points.numpy()
 
