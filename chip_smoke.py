@@ -29,7 +29,14 @@ checked on
 the adversarial pair systems of ``core/lm.py:adversarial_pair_system``
 (shuffled pairs with sinks between them, a hub node, duplicate pairs,
 J = 64), each launch pair compared bitwise, and timed on the band system of
-their path's own frame 1 (phases ``path_main`` and ``path_dense``).
+their path's own frame 1 (phases ``path_main`` and ``path_dense``).  K3
+(one cooperative grid, the matrix's nonzero chunks kept in shared memory)
+is checked and timed on a seeded J = 384 system (``k3``), a fully dense SPD
+matrix whose rows mostly take the overflow route (``k3_full``), a system
+with one node's rows and columns NaN (``k3_nan``: x all non-finite, as the
+plain version's), J = 15 (``k3_small``, dim 105: rows not 16-byte aligned,
+fewer rows than SMs), the dense graph's J = 1216 (``k3_dense``, dim 8512) and
+the ``pcg_pallas`` path's own frame-1 system (``path_pcg_pallas``).
 
 Launch counts are set to 0 just before a path runs and read just after.
 Each phase prints one JSON line; any failure raises and exits non-zero.  The
@@ -297,59 +304,170 @@ def phase_pair_path(dev, name, cfg, ctx, assoc, intr):
                        timed=True)
 
 
-def phase_k3(dev):
-    """K3 against its plain version at path B's shapes (J = 384: dim
-    2688, padded to 2816 in the wrapper), 32 iterations, on a seeded
-    normal-equation-shaped system (the damped pair system as a dense
-    matrix) block-preconditioned as the LM step does it."""
-    from super_tpu_torch.core.lm import block_precondition, \
-        example_pair_system
-    from super_tpu_torch.kernels.pcg import dense_cg, dense_cg_plain
+K3_ITERS = 32
 
-    j, iters = 384, 32
-    layout, acc, rhs, u, _ = example_pair_system(j, 4096, SEED + 1,
-                                                 device=dev)
-    a64 = _pair_matrix(layout, acc, u, j, dev)
-    a_hat, b_hat, _ = block_precondition(a64.float(), rhs, j)
+
+def _nonzero_chunks(a):
+    """Each row's 16-byte chunks (4 columns, zero past the last) that are
+    not all +-0 (a NaN is not zero): what K3 keeps of the row."""
+    n = a.shape[0]
+    chunks = torch.nn.functional.pad(a, (0, -n % 4)).reshape(n, -1, 4)
+    return (chunks != 0).any(dim=2).sum(dim=1)
+
+
+def _dense_check(name, system, a_hat, b_hat, finite=True):
+    """K3 against its plain version on one dense system, 32 iterations:
+    relative error, residuals, three launches compared bitwise (with
+    ``finite`` false instead: the kernel's x is all non-finite, as the
+    plain version's is), the chunk fill, each CTA's chunks kept in shared
+    memory and rows on the overflow route; the kernel's time (as every
+    kernel is timed here), its device time alone at 32 and at 0 iterations,
+    the host's time to enqueue it, the plain version's time, the bound and
+    the bytes the kernel reads from global memory an iteration."""
+    from super_tpu_torch.kernels.pcg import dense_cg, dense_cg_capacity, \
+        dense_cg_plain, dense_cg_stats
+
+    iters = K3_ITERS
+    n = a_hat.shape[0]
     x_k = dense_cg(a_hat, b_hat, iterations=iters)
+    x_k2 = dense_cg(a_hat, b_hat, iterations=iters)
+    x_k3, stats = dense_cg_stats(a_hat, b_hat, iterations=iters)
     x_p = dense_cg_plain(a_hat, b_hat, iterations=iters)
     torch.cuda.synchronize()
-    a_hat64, b64 = a_hat.double(), b_hat.double()
+    row_chunks = _nonzero_chunks(a_hat)
+    nz_chunks = int(row_chunks.sum())
+    kept, rows_over = (int(v) for v in stats.sum(dim=0))
+    ctas = stats.shape[0]
+    out = dict(phase=name, system=system, dim=n, iterations=iters,
+               chunk_fill=nz_chunks / (n * -(-n // 4)),
+               chunks_per_row_mean=nz_chunks / n,
+               chunks_per_row_max=int(row_chunks.max()),
+               chunks_kept=kept, chunks_kept_max_cta=int(stats[:, 0].max()),
+               capacity_per_cta=dense_cg_capacity(n), ctas=ctas,
+               rows_overflow=rows_over)
+    if finite:
+        a64, b64 = a_hat.double(), b_hat.double()
 
-    def resid(x):
-        return float(torch.linalg.norm(a_hat64 @ x.double() - b64)
-                     / torch.linalg.norm(b64))
+        def resid(x):
+            return float(torch.linalg.norm(a64 @ x.double() - b64)
+                         / torch.linalg.norm(b64))
 
-    err = float(torch.max(torch.abs(x_k - x_p)))
-    rel = err / float(torch.max(torch.abs(x_p)))
-    res_k, res_p = resid(x_k), resid(x_p)
-    ms = cuda_ms(lambda: dense_cg(a_hat, b_hat, iterations=iters), reps=50)
-    enqueue_ms = host_ms(lambda: dense_cg(a_hat, b_hat, iterations=iters),
-                         reps=20)
-    plain_ms = cuda_ms(lambda: dense_cg_plain(a_hat, b_hat,
-                                              iterations=iters), reps=10)
-    dim = a_hat.shape[0]
-    n = -(-dim // 256) * 256
-    # Work: one matvec (2 dim^2) and ~10 operations per entry per
-    # iteration.  Bytes: the matrix and b read once, x written.  From L2
-    # the kernel reads the padded matrix once per iteration.
-    flops = iters * (2 * dim * dim + 10 * dim)
-    nbytes = (dim * dim + 2 * dim) * 4
+        err = float(torch.max(torch.abs(x_k - x_p)))
+        rel = err / float(torch.max(torch.abs(x_p)))
+        res_k, res_p = resid(x_k), resid(x_p)
+        del a64
+        bitwise = bool(torch.equal(x_k, x_k2) and torch.equal(x_k, x_k3))
+        out.update(max_abs_err=err, max_rel_err=rel, residual_kernel=res_k,
+                   residual_plain=res_p, bitwise=bitwise)
+        # f32 CG, 32 iterations, sums in other orders: 1e-4 relative to
+        # |x|, and the same residual; the same bits from launch to launch;
+        # with no row on the overflow route, every nonzero chunk kept.
+        ok = (math.isfinite(rel) and rel < 1e-4 and res_k < 2 * res_p + 1e-5
+              and bitwise and (rows_over > 0 or kept == nz_chunks))
+    else:
+        fin = [int(torch.isfinite(x).sum()) for x in (x_k, x_k2, x_k3, x_p)]
+        out.update(finite_entries_kernel=fin[:3], finite_entries_plain=fin[3])
+        ok = fin == [0, 0, 0, 0]
+    if not ok:
+        emit(out)
+        raise RuntimeError(f"{name}: K3 disagrees with its plain version on "
+                           f"{system}")
+
+    def run(iterations):
+        return lambda: dense_cg(a_hat, b_hat, iterations=iterations)
+
+    ms = cuda_ms(run(iters), reps=50)
+    ms_dev, ms0 = (cuda_ms(run(it), reps=20, queued=True)
+                   for it in (iters, 0))
+    enqueue_ms = host_ms(run(iters), reps=20)
+    plain_ms = cuda_ms(lambda: dense_cg_plain(a_hat, b_hat, iterations=iters),
+                       reps=5)
+    # Work this run's data needs: a matvec over the nonzero entries and ~10
+    # operations per vector entry an iteration.  Bytes: the matrix (every
+    # entry must be read to know it is zero) and b read once, x written.
+    nnz = int((a_hat != 0).sum())
+    flops = iters * (2 * nnz + 10 * n)
+    nbytes = (n * n + 2 * n) * 4
     b_ms, b_by = bound(nbytes, flops)
-    l2_bytes = iters * n * n * 4
-    # f32 CG, 32 iterations, sums in other orders: 1e-4 relative to |x|,
-    # and the same residual.
-    if not (math.isfinite(rel) and rel < 1e-4 and res_k < 2 * res_p + 1e-5):
-        raise RuntimeError(f"K3 disagrees: rel {rel}, residuals {res_k} "
-                           f"vs {res_p}")
-    out = dict(phase="k3", j=j, dim=dim, dim_padded=n, iterations=iters,
-               max_abs_err=err, max_rel_err=rel, residual_kernel=res_k,
-               residual_plain=res_p, ms=ms, host_enqueue_ms=enqueue_ms,
-               plain_ms=plain_ms, bound_ms=b_ms,
-               bound_by=b_by, bytes=nbytes, flops=flops, l2_bytes=l2_bytes,
-               l2_gb_per_s=l2_bytes / ms / 1e6)
+    # Global memory an iteration: every CTA reads all of A p and the CTAs'
+    # partials and its overflow rows whole; A p and the partials written.
+    global_bytes = (ctas * (n + ctas) + rows_over * n + n + ctas) * 4
+    out.update(ms=ms, ms_device=ms_dev, ms_iterations0_device=ms0,
+               ms_per_iteration=(ms_dev - ms0) / iters,
+               host_enqueue_ms=enqueue_ms, plain_ms=plain_ms, bound_ms=b_ms,
+               bound_by=b_by, bytes=nbytes, flops=flops, nonzeros=nnz,
+               global_bytes_per_iteration=global_bytes)
     emit(out)
     return out
+
+
+def _pair_hat(dev, j, p, seed, failed_node=None):
+    """A seeded normal-equation-shaped system (the damped pair system of
+    ``example_pair_system`` as a dense matrix) block-preconditioned as the
+    LM step does it; with ``failed_node`` that node's diagonal block is
+    made indefinite, so its rows and columns of A-hat are NaN, as a failed
+    block Cholesky leaves them."""
+    from super_tpu_torch.core.lm import block_precondition, \
+        example_pair_system
+
+    layout, acc, rhs, u, _ = example_pair_system(j, p, seed, device=dev)
+    a = _pair_matrix(layout, acc, u, j, dev).float()
+    if failed_node is not None:
+        blk = slice(7 * failed_node, 7 * failed_node + 7)
+        a[blk, blk] = -torch.eye(7, device=dev)
+    a_hat, b_hat, _ = block_precondition(a, rhs, j)
+    return a_hat, b_hat
+
+
+def phase_k3(dev):
+    """K3 at path B's shapes (J = 384, P = 4096: dim 2688) on a seeded
+    system."""
+    return _dense_check("k3", "seeded", *_pair_hat(dev, 384, 4096, SEED + 1))
+
+
+def phase_k3_cases(dev):
+    """K3 on a fully dense SPD matrix at dim 2688 (rows on the overflow
+    route), on a system with one node's rows and columns NaN, at J = 15
+    (dim 105: rows not 16-byte aligned, fewer rows than SMs), and at the
+    dense graph's shapes (J = 1216, P = 19,456: dim 8512, a 290 MB
+    matrix)."""
+    n = 7 * 384
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    m = torch.randn((n, n), generator=gen, device=dev)
+    a = m @ m.T / n + torch.eye(n, device=dev)
+    a = (a + a.T) / 2                   # exactly symmetric
+    b = torch.randn((n,), generator=gen, device=dev)
+    _dense_check("k3_full", "dense_spd", a, b)
+    del m, a
+    _dense_check("k3_nan", "failed_block",
+                 *_pair_hat(dev, 384, 4096, SEED + 1, failed_node=100),
+                 finite=False)
+    _dense_check("k3_small", "seeded", *_pair_hat(dev, 15, 60, SEED + 2))
+    _dense_check("k3_dense", "seeded", *_pair_hat(dev, 1216, 19456, SEED + 1))
+
+
+def phase_dense_path(dev, intr, frames):
+    """K3 on the ``pcg_pallas`` path's own system: frame 1's normal
+    equations at beta0, damped by the initial damping and
+    block-preconditioned, as the first LM trip solves them."""
+    from super_tpu_torch.config import workload_config
+    from super_tpu_torch.core.lm import block_precondition
+    from super_tpu_torch.core.losses import assemble_normal_equations, \
+        associate, prepare_lm
+    from super_tpu_torch.core.tracker import init_tracker
+    from super_tpu_torch.geometry.quaternion import identity_dq
+
+    cfg = workload_config("pcg_pallas")
+    j = cfg.capacity.node_capacity
+    state = init_tracker(cfg, frames[0])
+    ctx = prepare_lm(cfg, state.surfels, state.graph, frames[1])
+    assoc = associate(cfg, ctx, intr)
+    beta = identity_dq(dev)[None].repeat(j, 1)
+    jtj, jtr, _ = assemble_normal_equations(cfg, ctx, beta, intr, assoc)
+    a = torch.diagonal_scatter(jtj, jtj.diagonal()
+                               + cfg.solver.lm_damping_init)
+    a_hat, b_hat, _ = block_precondition(a, jtr, j)
+    return _dense_check("path_pcg_pallas", "frame1", a_hat, b_hat)
 
 
 def phase_k2(dev, cfg, ctx, assoc, name="k2"):
@@ -754,6 +872,7 @@ def main() -> int:
     k1 = phase_k1(dev)
     k1b = phase_k1b(dev)
     k3 = phase_k3(dev)
+    phase_k3_cases(dev)
     cfg, intr, frames, launches = phase_main(dev)
     state = init_tracker(cfg, frames[0])
     ctx = prepare_lm(cfg, state.surfels, state.graph, frames[1])
@@ -772,6 +891,7 @@ def main() -> int:
     phase_pair_path(dev, "path_dense", dense_cfg, ctx, assoc, intr)
     del state, ctx, assoc
     solver_launches = phase_solvers(dev, intr, frames)
+    phase_dense_path(dev, intr, frames)
     phase_path_reference(intr, frames)
 
     emit({"kernels": [

@@ -362,16 +362,24 @@ def fuse_frame(cfg: SuPerConfig, intr: Intrinsics, surfels: SurfelState,
 
 def prune_surfels(cfg: SuPerConfig, surfels: SurfelState, track: TrackState,
                   time) -> Tuple[SurfelState, TrackState]:
-    """Deactivate surfels stale for th_time_steps (tracked ones are kept)
-    and mark tracks whose surfel is gone as lost (-2)."""
+    """Deactivate surfels stale for th_time_steps (tracked ones are kept,
+    slot 0 only where its last entry in track order is tracked) and mark
+    tracks whose surfel is gone as lost (-2)."""
     n = surfels.capacity
     if not cfg.disable_removing_unstable_surfels:
         fresh = (time - surfels.time_stamp) < cfg.th_time_steps
-        # Tracked slots stay (several tracks on one slot all write True).
-        kept = set_columns_drop(
-            torch.zeros((n,), dtype=torch.bool, device=fresh.device),
-            torch.where(track.track_id >= 0, track.track_id, n),
-            torch.ones_like(track.track_id, dtype=torch.bool))
+        # The JAX package writes active.at[clip(track_id)].set(tracked ?
+        # True : active[slot]): every entry writes, the untracked ones
+        # (clipped to slot 0) their slot's own value, and on each slot the
+        # last entry in track order wins.  That entry is found explicitly
+        # (the largest entry index per slot), since a write with repeated
+        # indices has no defined winner on CUDA.
+        slot = torch.clamp(track.track_id, 0, n - 1).long()
+        entry = torch.arange(slot.shape[0], device=slot.device)
+        last = torch.full((n,), -1, dtype=torch.int64,
+                          device=slot.device).scatter_reduce(0, slot, entry,
+                                                             "amax")
+        kept = (last >= 0) & (track.track_id >= 0)[last.clamp(min=0)]
         surfels = surfels._replace(active=(surfels.active & fresh) | kept)
     tid = torch.clamp(track.track_id, 0, n - 1).long()
     lost = (track.track_id >= 0) & ~surfels.active[tid]

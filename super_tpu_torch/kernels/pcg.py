@@ -305,59 +305,88 @@ def _dense_lib():
     for fn, args, res in (
             (lib.dense_cg_blocks, [], ci),
             (lib.dense_cg_smem_bytes, [ci], ctypes.c_longlong),
-            (lib.dense_cg_launch, [vp] * 5 + [ci] * 2 + [vp], ci)):
+            (lib.dense_cg_chunk_capacity, [ci], ci),
+            (lib.dense_cg_launch, [vp] * 5 + [ci] * 3 + [vp], ci)):
         fn.argtypes, fn.restype = args, res
     return lib
 
 
 @functools.cache
 def _dense_sizes(n: int):
-    """(shared memory bytes, blocks) of K3 at padded dim n, asked of the
-    library once."""
+    """(shared memory bytes before any chunk, chunk capacity, CTAs) of K3
+    at dim n, asked of the library once."""
     lib = _dense_lib()
-    return lib.dense_cg_smem_bytes(n), lib.dense_cg_blocks()
+    return (lib.dense_cg_smem_bytes(n), lib.dense_cg_chunk_capacity(n),
+            lib.dense_cg_blocks())
 
 
-def dense_cg(a, b, *, iterations: int = 32):
-    """Plain CG on ``a x = b`` (kernel K3): a (dim, dim) f32 symmetric, b
-    (dim,) f32; returns x (dim,) after ``iterations`` steps from 0.
+def dense_cg_capacity(n: int) -> int:
+    """Chunks (16 bytes of a row) one CTA of K3 keeps in shared memory at
+    dim n; its rows' other nonzero chunks are read on every iteration."""
+    return _dense_sizes(n)[1]
 
-    Both are zero-padded to a multiple of 256, as ``pcg_pallas`` pads them:
-    the iterates stay exactly zero in the padded coordinates.
-    """
-    dim = a.shape[0]
-    pad = -dim % _DENSE_PAD
-    if pad:
-        a = torch.nn.functional.pad(a, (0, pad, 0, pad))
-        b = torch.nn.functional.pad(b, (0, pad))
-    if a.device.type == "cpu":
-        return dense_cg_plain(a, b, iterations=iterations)[:dim]
-    if a.device.type != "cuda":
-        raise ValueError(f"dense_cg: unsupported device {a.device}")
-    n = dim + pad
+
+def _launch_dense_cg(a, b, iterations, with_stats=False):
+    """Check K3's arguments and launch it from csrc/dense_cg.cu on the
+    current stream, one CTA per SM, at the system's own dim; counts the
+    launch on :func:`dense_cg`.  With ``with_stats`` also returns each
+    CTA's (chunks kept in shared memory, rows on the overflow route), an
+    (SMs, 2) int32 device tensor."""
+    n = a.shape[0]
     if tuple(a.shape) != (n, n) or tuple(b.shape) != (n,) or \
             a.dtype != torch.float32 or b.dtype != torch.float32 or \
             b.device != a.device:
         raise ValueError(f"dense_cg: needs f32 (dim, dim) and (dim,) on one "
                          f"device, got {a.dtype} {tuple(a.shape)}, {b.dtype} "
                          f"{tuple(b.shape)} on {a.device}, {b.device}")
-    smem, blocks = _dense_sizes(n)
+    smem, _, ctas = _dense_sizes(n)
     if smem > _SMEM_MAX:
         raise ValueError(f"dense_cg: dim {n} needs {smem} B of shared memory "
-                         f"(> {_SMEM_MAX})")
+                         f"for p, r and its rows (> {_SMEM_MAX})")
     a, b = a.contiguous(), b.contiguous()
     x = torch.empty((n,), dtype=torch.float32, device=a.device)
     # Freed on return while the kernel may still run: safe, see pairs_cg.
-    r_scratch = torch.empty((n,), dtype=torch.float32, device=a.device)
-    part = torch.empty((2 * blocks,), dtype=torch.float32, device=a.device)
+    ap_scratch = torch.empty((2 * n,), dtype=torch.float32, device=a.device)
+    stats = torch.empty((ctas, 2), dtype=torch.int32, device=a.device)
+    aligned = n % 4 == 0 and a.data_ptr() % 16 == 0
     stream = torch.cuda.current_stream(a.device).cuda_stream
     rc = _dense_lib().dense_cg_launch(a.data_ptr(), b.data_ptr(),
-                                      x.data_ptr(), r_scratch.data_ptr(),
-                                      part.data_ptr(), n, iterations, stream)
+                                      x.data_ptr(), ap_scratch.data_ptr(),
+                                      stats.data_ptr(), n, iterations,
+                                      int(aligned), stream)
     if rc != 0:
         raise RuntimeError(f"dense_cg launch failed: cudaError {rc}")
     dense_cg.launches += 1
-    return x[:dim]
+    if with_stats:
+        return x, stats
+    return x
+
+
+def dense_cg_stats(a, b, *, iterations: int = 32):
+    """Launch K3 once on CUDA tensors, as :func:`dense_cg` does; returns the
+    solution and each CTA's (chunks kept, rows on the overflow route)."""
+    return _launch_dense_cg(a, b, iterations, with_stats=True)
+
+
+def dense_cg(a, b, *, iterations: int = 32):
+    """Plain CG on ``a x = b`` (kernel K3): a (dim, dim) f32 symmetric, b
+    (dim,) f32; returns x (dim,) after ``iterations`` steps from 0.
+
+    ``pcg_pallas`` zero-pads the system to a multiple of 256; the iterates
+    stay exactly zero in the padded coordinates, so the kernel takes the
+    system at its own dim, any dim up to ~28,000 (p, r and the per-row
+    state of a CTA in shared memory).  On the CPU the plain version solves
+    the padded system, so that it rounds as the JAX package's does.
+    """
+    if a.device.type == "cpu":
+        dim = a.shape[0]
+        pad = -dim % _DENSE_PAD
+        return dense_cg_plain(torch.nn.functional.pad(a, (0, pad, 0, pad)),
+                              torch.nn.functional.pad(b, (0, pad)),
+                              iterations=iterations)[:dim]
+    if a.device.type != "cuda":
+        raise ValueError(f"dense_cg: unsupported device {a.device}")
+    return _launch_dense_cg(a, b, iterations)
 
 
 dense_cg.launches = 0

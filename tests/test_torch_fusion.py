@@ -185,10 +185,9 @@ def test_prune_surfels(base):
     on = np.flatnonzero(active)
     track_id = np.full((cfg.capacity.track_capacity,), -1, np.int32)
     track_id[:6] = on[:6]                    # some tracked, some stale
-    # A tracked slot that is already inactive is kept (reactivated).  Not
-    # slot 0: there the JAX package's write collides with the untracked
-    # (-1, clipped to 0) entries and its winner is unspecified (ROADMAP
-    # queue 3).
+    # A tracked slot that is already inactive is kept (reactivated).  Slot
+    # 0, where the untracked (-1, clipped to 0) entries write too, is
+    # test_prune_surfels_slot0_write_order's.
     track_id[6] = np.flatnonzero(~active)[1]
     track_id[7] = on[0]                      # two tracks on one slot
     track = st.track._replace(track_id=jnp.asarray(track_id))
@@ -199,3 +198,40 @@ def test_prune_surfels(base):
     close(s_j.active, s_t.active, atol=0, name="active")
     close(tr_j.track_id, tr_t.track_id, atol=0, name="track_id")
     assert np.sum(np.asarray(s_j.active)) < active.sum()
+
+
+# Track tables around slot 0 (stale there): the entries given, then the
+# rest untracked (-1) or tracking other live slots; and whether slot 0
+# stays, which is the last slot-0 entry's (tracked or not) in track order.
+SLOT0_ORDERS = {
+    "tracked_first": ([0, -1], "untracked", False),
+    "tracked_last": ([-1] * 19 + [0], "untracked", True),
+    "untracked_after": ([-1, 0, -1], "untracked", False),
+    "two_tracks_untracked_between": ([0, -1, 0], "others", True),
+    "two_tracks_then_untracked": ([-1, 0, -1, 0], "untracked", False),
+}
+
+
+@pytest.mark.parametrize("order", list(SLOT0_ORDERS))
+def test_prune_surfels_slot0_write_order(base, order):
+    cfg, _, _, st = base
+    head, tail, kept = SLOT0_ORDERS[order]
+    n = cfg.capacity.surfel_capacity
+    ts = np.array(to_np(st.surfels).time_stamp)
+    ts[0] = -40.0                            # slot 0 stale
+    surfels = st.surfels._replace(time_stamp=jnp.asarray(ts))
+    active = np.asarray(surfels.active)
+    cap = cfg.capacity.track_capacity
+    others = np.flatnonzero(active[1:])[:cap] + 1
+    track_id = np.full((cap,), -1, np.int32)
+    if tail == "others":
+        track_id[:] = others
+    track_id[:len(head)] = head
+    track = st.track._replace(track_id=jnp.asarray(track_id))
+    s_j, tr_j = jfus.prune_surfels(cfg, surfels, track, jnp.float32(5.0))
+    ps = port_state(st._replace(surfels=surfels, track=track))
+    s_t, tr_t = tfus.prune_surfels(port_config(cfg), ps.surfels, ps.track,
+                                   torch.tensor(5.0))
+    assert bool(s_j.active[0]) == kept
+    close(s_j.active, s_t.active, atol=0, name="active")
+    close(tr_j.track_id, tr_t.track_id, atol=0, name="track_id")
