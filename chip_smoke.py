@@ -5,7 +5,7 @@
 
 Builds the port's hand-written CUDA kernels from super_tpu_torch/csrc, holds
 each against its plain PyTorch version on the card at the shapes of the
-paths that run it, then drives three paths of the LM tracking step at
+paths that run it, then drives four paths of the LM tracking step at
 480 x 640 (synthetic frames -> preprocess_frame -> init_tracker ->
 track_step) and checks that each went through its kernels and that its
 results are right:
@@ -17,7 +17,13 @@ results are right:
   (J = 1216, pair-sparse CG by K1b, ``data_gram``);
 - solvers: the headline workload with the dense-matrix solvers,
   ``linear_solver="pcg_pallas"`` (K3, ``data_gram``), then ``"cholesky"``
-  and ``"pcg"``.
+  and ``"pcg"``;
+- per_iteration: the headline with the moving-target association (K1 and
+  K2's memory form, ``tuple_gram``: the rows written to memory).
+
+Every path sums its assembly's shared destinations with the fixed-order
+segment sum (``csrc/segment_sum.cu``) four times a trip, and the node radii
+once at frame 0.
 
 K2's two forms, one template (rows from memory, ``tuple_gram``, and rows
 from the data term, ``data_gram``), are each checked on the headline's and
@@ -36,7 +42,16 @@ matrix whose rows mostly take the overflow route (``k3_full``), a system
 with one node's rows and columns NaN (``k3_nan``: x all non-finite, as the
 plain version's), J = 15 (``k3_small``, dim 105: rows not 16-byte aligned,
 fewer rows than SMs), the dense graph's J = 1216 (``k3_dense``, dim 8512) and
-the ``pcg_pallas`` path's own frame-1 system (``path_pcg_pallas``).
+the ``pcg_pallas`` path's own frame-1 system (``path_pcg_pallas``).  The
+segment sum is checked on each sum of the headline's, the dense graph's
+and the pcg_pallas path's frame-1 assembly (``segsum``).  ``repeat``
+tracks 5 headline frames twice with the GT points bound and requires both
+to agree bit for bit; ``pipeline`` runs SuPerPipeline on 30 frames with
+ground truth for five configurations, the per-iteration one also with
+its Grams nudged by f32 roundings and on two other draws of the GT
+points, and requires each to track (reprojection error against the
+static error); ``bench`` prints ``python -m super_tpu_torch.bench``'s
+line at 6 frames.
 
 Launch counts are set to 0 just before a path runs and read just after.
 Each phase prints one JSON line; any failure raises and exits non-zero.  The
@@ -48,11 +63,16 @@ Needs a CUDA card and nvcc; imports nothing of the JAX package.
 
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
+import dataclasses
 import json
 import math
+import multiprocessing
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -62,7 +82,14 @@ H100_F32_FLOP_PER_S = 67e12        # f32 outside the tensor cores
 MAIN_FRAMES = 5                    # tracked frames after frame 0
 PATH_FRAMES = 3                    # tracked frames of the dense and solvers paths
 SEED = 0
-SOURCES = ("pairs_cg", "tuple_gram", "dense_cg")   # csrc/<name>.cu
+# csrc/<name>.cu
+SOURCES = ("pairs_cg", "tuple_gram", "dense_cg", "segment_sum")
+PIPELINE_FRAMES = 30               # the JAX README's accuracy run
+PIPELINE_SEEDS = (1, 2)            # other draws of the 20 GT points
+# The fixed-order sums of a step: per LM trip the pair reduction's pair
+# rows and tuple J^T r rows, the ARAP J^T r rows and the graph terms' pair
+# rows (or dense blocks); once a track, the node radii at frame 0.
+SEGSUM_PER_TRIP, SEGSUM_AT_INIT = 4, 1
 
 
 def emit(obj):
@@ -470,18 +497,18 @@ def phase_dense_path(dev, intr, frames):
     return _dense_check("path_pcg_pallas", "frame1", a_hat, b_hat)
 
 
-def phase_k2(dev, cfg, ctx, assoc, name="k2"):
+def phase_k2(dev, cfg, ctx, assoc, name="k2", rows=None):
     """K2 against its plain version on a path's own rows (a real
-    block_tuple from build_tuple_layout on synthetic 480 x 640 frames)."""
+    block_tuple from build_tuple_layout on synthetic 480 x 640 frames):
+    the data term's rows against ``assoc`` at a perturbed beta, or
+    ``rows`` (h, r) as given."""
     from super_tpu_torch.core.losses import data_rows
-    from super_tpu_torch.geometry.quaternion import identity_dq
     from super_tpu_torch.kernels.gram import tuple_gram, tuple_gram_plain
 
-    gen = torch.Generator(device="cpu").manual_seed(SEED)
-    j_cap = cfg.capacity.node_capacity
-    beta = identity_dq(dev)[None].repeat(j_cap, 1)
-    beta = beta + 1e-3 * torch.randn((j_cap, 7), generator=gen).to(dev)
-    h, r = data_rows(ctx, beta, cfg.losses.sf_point_plane_weight, assoc)
+    if rows is None:
+        rows = data_rows(ctx, _perturbed_beta(cfg, dev),
+                         cfg.losses.sf_point_plane_weight, assoc)
+    h, r = rows
     bt = ctx.layout.block_tuple
     kw = dict(tuple_cap=ctx.layout.tuple_nodes.shape[0],
               block=cfg.solver.assembly_pad_group)
@@ -629,12 +656,48 @@ def phase_k2_fused(dev, cfg, ctx, assoc, name="k2_fused"):
     return out
 
 
-def _frames(cfg, intr, n, dev, seed=SEED):
-    from super_tpu_torch.core.preprocess import preprocess_frame
+_SEQUENCES = {}
+
+
+def _camera(intr):
+    """The intrinsics' values as floats: what the synthetic generator reads,
+    in a form a worker process can take."""
+    return types.SimpleNamespace(**{k: float(getattr(intr, k))
+                                    for k in ("fx", "fy", "cx", "cy")})
+
+
+def _sequence(cfg, intr, n, seed=SEED):
+    """The synthetic sequence's first ``n`` frames.  Generated once at the
+    longest length any phase needs (PIPELINE_FRAMES at 480 x 640): a
+    frame does not depend on the sequence's length."""
     from super_tpu_torch.data.synthetic import generate
 
-    seq = generate(n, cfg.height, cfg.width, intr=intr, seed=seed)
-    colors = np.ascontiguousarray(seq.colors.transpose(0, 3, 1, 2))
+    key = (cfg.height, cfg.width, seed)
+    if key not in _SEQUENCES or len(_SEQUENCES[key].depths) < n:
+        full = max(n, PIPELINE_FRAMES if key[:2] == (480, 640) else n)
+        _SEQUENCES[key] = generate(full, cfg.height, cfg.width,
+                                   intr=_camera(intr), seed=seed)
+    return _SEQUENCES[key]
+
+
+def _start_sequences(intr, seeds):
+    """The pipeline phase's sequences of other GT point draws (``seeds``;
+    the clean scene's frames do not depend on the seed, only the 20 tracked
+    points do), generated in worker processes while the card works:
+    (executor, {seed: future})."""
+    from super_tpu_torch.data.synthetic import generate
+
+    pool = concurrent.futures.ProcessPoolExecutor(
+        len(seeds), mp_context=multiprocessing.get_context("spawn"))
+    return pool, {s: pool.submit(generate, PIPELINE_FRAMES, 480, 640,
+                                 intr=_camera(intr), seed=s) for s in seeds}
+
+
+def _frames(cfg, intr, n, dev, seed=SEED):
+    from super_tpu_torch.core.preprocess import preprocess_frame
+
+    seq = _sequence(cfg, intr, n, seed)
+    colors = np.ascontiguousarray(seq.colors[:n].transpose(0, 3, 1, 2))
     return [preprocess_frame(cfg, intr, seq.depths[t], colors[t], float(t),
                              device=dev) for t in range(n)]
 
@@ -666,17 +729,18 @@ def _track(cfg, intr, frames, timed=False):
 
 
 def _launch_counts():
-    from super_tpu_torch.kernels import gram, pcg
+    from super_tpu_torch.kernels import gram, pcg, segsum
 
     return {"pairs_cg": pcg.pairs_cg, "pairs_cg_chunked": pcg.pairs_cg_chunked,
             "tuple_gram": gram.tuple_gram, "data_gram": gram.data_gram,
-            "dense_cg": pcg.dense_cg}
+            "dense_cg": pcg.dense_cg, "segment_sum": segsum.segment_sum}
 
 
 def _run_path(name, cfg, intr, frames, per_trip):
     """Track ``frames`` (frame 0 initialises) with every step under sync
     debug mode "error", the launch counts zeroed just before and read just
-    after.  ``per_trip``: the kernels that must launch once per LM trip;
+    after.  ``per_trip``: {kernel: launches per LM trip}; the segment sum
+    must launch SEGSUM_PER_TRIP times a trip and SEGSUM_AT_INIT at frame 0;
     every other kernel must not launch."""
     wrappers = _launch_counts()
     torch.cuda.reset_peak_memory_stats()
@@ -694,7 +758,9 @@ def _run_path(name, cfg, intr, frames, per_trip):
                       **{c: int(getattr(o, c)) for c in counters})
                  for i, (o, t) in enumerate(zip(outs, times))]
     trips = cfg.solver.num_iterations * (len(frames) - 1)
-    want = {k: trips if k in per_trip else 0 for k in wrappers}
+    per_trip = {"segment_sum": SEGSUM_PER_TRIP, **per_trip}
+    want = {k: trips * per_trip.get(k, 0) for k in wrappers}
+    want["segment_sum"] += SEGSUM_AT_INIT
     ok = (all(math.isfinite(f["lm_cost"]) for f in per_frame)
           and all(f["num_surfels"] > 0 for f in per_frame)
           and launches == want)
@@ -730,7 +796,7 @@ def phase_main(dev):
     emit(dict(phase="setup", frames=len(frames),
               seconds=time.perf_counter() - t0))
     launches = _run_path("main", cfg, intr, frames,
-                         ("pairs_cg", "data_gram"))
+                         {"pairs_cg": 1, "data_gram": 1})
     return cfg, intr, frames, launches
 
 
@@ -742,7 +808,7 @@ def phase_dense(dev, intr, frames):
 
     cfg = workload_config("dense16")
     launches = _run_path("dense", cfg, intr, frames[:PATH_FRAMES + 1],
-                         ("pairs_cg_chunked", "data_gram"))
+                         {"pairs_cg_chunked": 1, "data_gram": 1})
     return cfg, launches
 
 
@@ -753,39 +819,49 @@ def phase_solvers(dev, intr, frames):
     from super_tpu_torch.config import workload_config
 
     launches = _run_path("solvers", workload_config("pcg_pallas"), intr,
-                         frames[:PATH_FRAMES + 1], ("dense_cg", "data_gram"))
+                         frames[:PATH_FRAMES + 1],
+                         {"dense_cg": 1, "data_gram": 1})
     for solver in ("cholesky", "pcg"):
         _run_path(f"solvers_{solver}", workload_config(solver), intr,
-                  frames[:2], ("data_gram",))
+                  frames[:2], {"data_gram": 1})
     return launches
+
+
+def _to(x, d):
+    """A tensor, or a NamedTuple tree of them, on device ``d``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(d)
+    return type(x)(*(_to(v, d) for v in x))
+
+
+def _frame1_solve(cfg, intr, state, frame, dev):
+    """Frame 1's LM solve from ``state`` (init_tracker's on frame 0), every
+    input moved to ``dev``."""
+    from super_tpu_torch.core.lm import lm_solve
+    from super_tpu_torch.core.losses import prepare_lm
+
+    state, frame, intr = _to(state, dev), _to(frame, dev), _to(intr, dev)
+    return lm_solve(cfg, prepare_lm(cfg, state.surfels, state.graph, frame),
+                    intr)
 
 
 def _frame1_vs_cpu(cfg, intr, frames):
     """Frame 1's LM solve at full size on the card and on the CPU path from
-    identical inputs: (max |beta| difference, cost relative difference,
-    CPU seconds)."""
-    from super_tpu_torch.core.lm import lm_solve
-    from super_tpu_torch.core.losses import prepare_lm
+    identical inputs: (card's LMResult, CPU's LMResult, CPU seconds)."""
     from super_tpu_torch.core.tracker import init_tracker
 
-    def to(x, d):
-        if isinstance(x, torch.Tensor):
-            return x.to(d)
-        return type(x)(*(to(v, d) for v in x))
-
     state = init_tracker(cfg, frames[0])
-    res_c = lm_solve(cfg, prepare_lm(cfg, state.surfels, state.graph,
-                                     frames[1]), intr)
-    cpu = torch.device("cpu")
-    state_h, frame_h, intr_h = to(state, cpu), to(frames[1], cpu), \
-        to(intr, cpu)
+    res_c = _frame1_solve(cfg, intr, state, frames[1],
+                          frames[1].points.device)
     t0 = time.perf_counter()
-    res_h = lm_solve(cfg, prepare_lm(cfg, state_h.surfels, state_h.graph,
-                                     frame_h), intr_h)
-    cpu_s = time.perf_counter() - t0
-    beta_err = float(torch.max(torch.abs(res_c.beta.cpu() - res_h.beta)))
-    cost_rel = abs(float(res_c.cost) - float(res_h.cost)) / float(res_h.cost)
-    return beta_err, cost_rel, float(res_c.cost), cpu_s
+    res_h = _frame1_solve(cfg, intr, state, frames[1], torch.device("cpu"))
+    return res_c, res_h, time.perf_counter() - t0
+
+
+def _solve_diff(a, b):
+    """(max |beta| difference, |cost difference|) of two LM results."""
+    return (float(torch.max(torch.abs(a.beta.cpu() - b.beta.cpu()))),
+            abs(float(a.cost) - float(b.cost)))
 
 
 def phase_path_reference(intr, frames):
@@ -795,10 +871,12 @@ def phase_path_reference(intr, frames):
 
     out = {}
     for name in ("dense16", "pcg_pallas", "cholesky"):
-        cfg = workload_config(name)
-        beta_err, cost_rel, cost, cpu_s = _frame1_vs_cpu(cfg, intr, frames)
-        out[name] = dict(beta_max_abs_err=beta_err, cost_rel_err=cost_rel,
-                         cost=cost, cpu_s=cpu_s)
+        res_c, res_h, cpu_s = _frame1_vs_cpu(workload_config(name), intr,
+                                             frames)
+        beta_err, cost_err = _solve_diff(res_c, res_h)
+        out[name] = dict(beta_max_abs_err=beta_err,
+                         cost_rel_err=cost_err / float(res_h.cost),
+                         cost=float(res_c.cost), cpu_s=cpu_s)
     emit(dict(phase="path_reference", frame1=out))
     bad = {k: v for k, v in out.items()
            if not (v["beta_max_abs_err"] < 1e-4 and v["cost_rel_err"] < 1e-2)}
@@ -816,7 +894,9 @@ def phase_reference(dev, cfg, intr, frames):
     from super_tpu_torch.data.synthetic import default_intrinsics
 
     cpu = torch.device("cpu")
-    beta_err, cost_rel, cost, cpu_s = _frame1_vs_cpu(cfg, intr, frames)
+    res_c, res_h, cpu_s = _frame1_vs_cpu(cfg, intr, frames)
+    beta_err, cost_err = _solve_diff(res_c, res_h)
+    cost, cost_rel = float(res_c.cost), cost_err / float(res_h.cost)
 
     tiny = SuPerConfig(
         height=48, width=64, mesh_step_size=8,
@@ -850,12 +930,411 @@ def phase_reference(dev, cfg, intr, frames):
         raise RuntimeError("results disagree with the CPU reference")
 
 
+def _same(a, b):
+    """Bitwise equal tensors (NaN where the other is NaN), or trees of
+    them."""
+    if isinstance(a, torch.Tensor):
+        if a.is_floating_point():
+            return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+        return bool(torch.equal(a, b))
+    return all(_same(x, y) for x, y in zip(a, b))
+
+
+def _capture_sums(cfg, ctx, beta, intr, assoc):
+    """One assemble_normal_equations and its fixed-order sums as the step
+    gives them: ([(values, plan, keywords)] in call order, (jtj, jtr,
+    cost))."""
+    from super_tpu_torch.core import assembly, losses
+    from super_tpu_torch.kernels import segsum
+
+    calls = []
+    real = segsum.segment_sum
+
+    def spy(values, plan, **kw):
+        calls.append((values, plan, kw))
+        return real(values, plan, **kw)
+
+    assembly.segment_sum = losses.segment_sum = spy
+    try:
+        out = losses.assemble_normal_equations(cfg, ctx, beta, intr, assoc)
+    finally:
+        assembly.segment_sum = losses.segment_sum = real
+    return calls, out
+
+
+def _perturbed_beta(cfg, dev):
+    from super_tpu_torch.geometry.quaternion import identity_dq
+
+    gen = torch.Generator(device="cpu").manual_seed(SEED)
+    j_cap = cfg.capacity.node_capacity
+    beta = identity_dq(dev)[None].repeat(j_cap, 1)
+    return beta + 1e-3 * torch.randn((j_cap, 7), generator=gen).to(dev)
+
+
+def phase_segsum(dev, path, cfg, ctx, assoc, intr, only=None):
+    """The fixed-order segment sum against its plain version (index_add_)
+    on the sums of one path's frame-1 assembly at a perturbed beta, at the
+    shapes the path gives them (the pair rows in bf16, the tuples' and the
+    ARAP term's J^T r rows, and the graph terms' pair rows or, on the
+    dense-matrix paths, the graph blocks; ``only``: the names to hold):
+    max abs error <= 1e-6 of the largest sum, two launches bitwise equal;
+    the kernel's time, the plain version's, index_add_'s alone and the
+    bound.  Returns {name: record}."""
+    from super_tpu_torch.kernels.segsum import segment_sum, segment_sum_plain
+
+    last = ("graph_rows" if cfg.solver.linear_solver == "pairs_fused"
+            else "dense_blocks")
+    calls, _ = _capture_sums(cfg, ctx, _perturbed_beta(cfg, dev), intr,
+                             assoc)
+    cases = [c for c in zip(("pair_rows", "node_jtr", "arap_jtr", last),
+                            calls) if only is None or c[0] in only]
+    records = {}
+    for name, (values, plan, kw) in cases:
+        out_k, out_k2 = segment_sum(values, plan, **kw), \
+            segment_sum(values, plan, **kw)
+        out_p = segment_sum_plain(values, plan, **kw)
+        torch.cuda.synchronize()
+        err = float(torch.max(torch.abs(out_k - out_p)))
+        scale = float(torch.max(torch.abs(out_p)))
+        bitwise = bool(torch.equal(out_k, out_k2))
+        acc = torch.zeros_like(out_p)
+        ms = cuda_ms(lambda: segment_sum(values, plan, **kw), reps=20)
+        ms_dev = cuda_ms(lambda: segment_sum(values, plan, **kw), reps=20,
+                         queued=True)
+        enqueue_ms = host_ms(lambda: segment_sum(values, plan, **kw),
+                             reps=20)
+        plain_ms = cuda_ms(lambda: segment_sum_plain(values, plan, **kw),
+                           reps=20)
+        library_ms = cuda_ms(lambda: acc.index_add_(0, plan.ids, values),
+                             reps=20)
+        r, s_ = values.shape[0], plan.num_segments
+        base = kw.get("base") is not None
+        nbytes = (values.numel() + r + s_ + 1
+                  + out_p.numel() * (2 if base else 1)) * 4
+        b_ms, b_by = bound(nbytes, values.numel())
+        seg_len = torch.diff(plan.offsets)
+        rec = dict(phase="segsum", path=path, sum=name, rows=r, segments=s_,
+                   width=values.numel() // r, sum_dtype=kw.get("sum_dtype"),
+                   base=base, longest_segment=int(seg_len.max()),
+                   empty_segments=int((seg_len == 0).sum()),
+                   max_abs_err=err, scale=scale, bitwise=bitwise, ms=ms,
+                   ms_device=ms_dev, host_enqueue_ms=enqueue_ms,
+                   plain_ms=plain_ms,
+                   library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
+                   bytes=nbytes)
+        emit(rec)
+        # One f32 sum per output in another order than index_add_'s
+        # atomics (a long segment adds its chunks' totals): 1e-6 of the
+        # largest sum; a fixed order: the same bits every launch.
+        if not (math.isfinite(err) and err <= 1e-6 * scale and bitwise):
+            raise RuntimeError(f"segment_sum disagrees on {path} {name}: "
+                               f"{rec}")
+        records[name] = rec
+    return records
+
+
+def phase_repeat(dev, cfg, intr, frames):
+    """Two 5-frame headline tracks from the same frames, with the 20 GT
+    points bound and read every frame: bitwise equal surfels, graph,
+    lm_cost per frame and track ids; and frame 1's normal equations
+    assembled twice, with the per-frame association and with none."""
+    from super_tpu_torch.core.losses import assemble_normal_equations, \
+        associate, prepare_lm
+    from super_tpu_torch.core.track_points import assign_track_points, \
+        record_track_coords
+    from super_tpu_torch.core.tracker import init_tracker, track_step
+
+    seq = _sequence(cfg, intr, len(frames))
+    gt_xy = torch.as_tensor(seq.gt_xy[:len(frames)].astype(np.int32),
+                            device=dev)
+    gt_valid = torch.as_tensor(seq.gt_valid[:len(frames)], device=dev)
+
+    def bind(state, t):
+        track = assign_track_points(cfg, state.surfels, frames[t],
+                                    state.track, gt_xy[t], gt_valid[t])
+        return state._replace(track=record_track_coords(state.surfels, track))
+
+    def track():
+        state = bind(init_tracker(cfg, frames[0]), 0)
+        costs, ids = [], []
+        for t in range(1, len(frames)):
+            state, outs = track_step(cfg, intr, state, frames[t])
+            state = bind(state, t)
+            costs.append(outs.lm_cost)
+            ids.append(state.track.track_id)
+        return state, torch.stack(costs), torch.stack(ids)
+
+    (s1, c1, i1), (s2, c2, i2) = track(), track()
+    torch.cuda.synchronize()
+    same = dict(surfels=_same(s1.surfels, s2.surfels),
+                graph=_same(s1.graph, s2.graph), lm_cost=_same(c1, c2),
+                track_ids=_same(i1, i2),
+                track_coords=_same(s1.track.coords, s2.track.coords))
+    state = init_tracker(cfg, frames[0])
+    ctx = prepare_lm(cfg, state.surfels, state.graph, frames[1])
+    beta = _perturbed_beta(cfg, dev)
+    for name, assoc in (("per_frame", associate(cfg, ctx, intr)),
+                        ("per_iteration", None)):
+        a = assemble_normal_equations(cfg, ctx, beta, intr, assoc)
+        b = assemble_normal_equations(cfg, ctx, beta, intr, assoc)
+        same[f"frame1_assembly_{name}"] = _same(a, b)
+    emit(dict(phase="repeat", frames=len(frames), bitwise=same,
+              lm_cost=c1.tolist(), tracked=int((i1[-1] >= 0).sum())))
+    if not all(same.values()):
+        raise RuntimeError(f"the card path does not repeat: {same}")
+
+
+@contextlib.contextmanager
+def _gram_scaled(scale):
+    """Every tuple Gram of the moving target scaled by ``scale`` (1 +- a
+    few f32 roundings): a nudge the size of a change of sum order."""
+    from super_tpu_torch.core import losses
+
+    real = losses.tuple_gram
+
+    def nudged(*args, **kw):
+        gram, jtr = real(*args, **kw)
+        return gram * scale, jtr
+
+    losses.tuple_gram = nudged
+    try:
+        yield
+    finally:
+        losses.tuple_gram = real
+
+
+def _bf16_assembly(cfg, ctx, ctx_h, beta, intr, intr_h):
+    """The moving-target normal equations as the path assembles them (pair
+    sums of bf16-rounded rows), card against CPU.  The pair rows before
+    rounding are the same sums in other f32 orders; where the two sides
+    straddle a bf16 rounding boundary they round a bf16 step apart.  So
+    each entry of jtj may differ by the sum of its rows' rounding
+    differences plus the f32 tolerance, 1e-5 of the largest entry
+    (``jtj_over_limit`` <= 0); the rows before rounding, jtr and the cost
+    are held to 1e-5."""
+    from super_tpu_torch.kernels.segsum import segment_sum_plain
+
+    calls_c, (jtj_c, jtr_c, cost_c) = _capture_sums(cfg, ctx, beta, intr,
+                                                    None)
+    calls_h, (jtj_h, jtr_h, cost_h) = _capture_sums(cfg, ctx_h, beta.cpu(),
+                                                    intr_h, None)
+    (v_c, plan_c, kw), (v_h, plan_h, _) = calls_c[0], calls_h[0]
+    if kw.get("sum_dtype") != "bf16" or \
+            not torch.equal(plan_c.ids.cpu(), plan_h.ids):
+        raise RuntimeError("per_iteration: the pair sums are not bf16 sums "
+                           "of one layout on both sides")
+    v_c = v_c.cpu()
+    steps = torch.abs(v_c.to(torch.bfloat16).float()
+                      - v_h.to(torch.bfloat16).float())
+    scale = float(torch.max(torch.abs(jtj_h)))
+    diff = torch.abs(jtj_c.cpu() - jtj_h)
+    limit = segment_sum_plain(steps, plan_h) + 1e-5 * scale
+    return dict(
+        rows_err=float(torch.max(torch.abs(v_c - v_h)))
+        / float(torch.max(torch.abs(v_h))),
+        rounding_flips=int((steps > 0).sum()), flip_max=float(steps.max()),
+        jtj_err=float(diff.max()) / scale,
+        jtj_over_limit=float((diff - limit).max()),
+        jtr_err=float(torch.max(torch.abs(jtr_c.cpu() - jtr_h)))
+        / float(torch.max(torch.abs(jtr_h))),
+        cost_rel_err=abs(float(cost_c) - float(cost_h)) / float(cost_h))
+
+
+# The nudges of the per-iteration path's witnesses: every tuple Gram scaled
+# by 1 +- 2e-7, about two f32 roundings.
+NUDGES = (1 + 2e-7, 1 - 2e-7)
+
+
+def phase_per_iteration(dev, intr, frames):
+    """The per-iteration (moving-target) path: K1 and K2's memory form
+    (``tuple_gram``) once per LM trip, ``data_gram`` never; K2 timed on the
+    rows of frame 1's first trip; then frame 1 against the CPU path.
+
+    The normal equations at the identity and at a perturbed beta (what a
+    trip assembles), with the pair sums in f32, are held to 1e-5 of their
+    largest entry, and with the path's bf16 pair sums to that plus the
+    bf16 steps where the two sides round apart (:func:`_bf16_assembly`).
+    The LM solve is chaotic at f32 rounding: each trip re-samples the
+    target, and a sample within an ULP of a pixel line switches its
+    bilinear cell, and with it the sampling gradient, which jumps at a
+    depth edge.  So the solve is held to the spread of the same solve
+    under nudges of f32 rounding size (:data:`NUDGES`, on the card, and
+    1 + 2e-7 on the CPU), measured in this run: the card's beta within
+    twice the largest beta change a nudge makes, its cost within the
+    largest cost change.
+    """
+    from super_tpu_torch.config import workload_config
+    from super_tpu_torch.core.losses import assemble_normal_equations, \
+        moving_rows, prepare_lm
+    from super_tpu_torch.core.tracker import init_tracker
+    from super_tpu_torch.geometry.quaternion import identity_dq
+
+    cfg = workload_config("per_iteration")
+    launches = _run_path("per_iteration", cfg, intr, frames[:PATH_FRAMES + 1],
+                         {"pairs_cg": 1, "tuple_gram": 1})
+    cpu = torch.device("cpu")
+    j = cfg.capacity.node_capacity
+
+    state = init_tracker(cfg, frames[0])
+    ctx = prepare_lm(cfg, state.surfels, state.graph, frames[1])
+    # K2's memory form on the moving rows frame 1's first trip writes.
+    k2 = phase_k2(dev, cfg, ctx, None, name="k2_per_iteration",
+                  rows=moving_rows(cfg, ctx, identity_dq(dev)[None].repeat(
+                      j, 1), intr, cfg.losses.sf_point_plane_weight))
+    state_h, intr_h = _to(state, cpu), _to(intr, cpu)
+    ctx_h = prepare_lm(cfg, state_h.surfels, state_h.graph,
+                       _to(frames[1], cpu))
+    cfg32 = cfg.replace(solver=dataclasses.replace(cfg.solver,
+                                                   gram_sum_dtype="f32"))
+    out = {}
+    for name, beta in (("identity", identity_dq(dev)[None].repeat(j, 1)),
+                       ("perturbed", _perturbed_beta(cfg, dev))):
+        a = assemble_normal_equations(cfg32, ctx, beta, intr, None)
+        b = assemble_normal_equations(cfg32, ctx_h, beta.cpu(), intr_h, None)
+        out[name] = dict(
+            jtj_err=float(torch.max(torch.abs(a[0].cpu() - b[0])))
+            / float(torch.max(torch.abs(b[0]))),
+            jtr_err=float(torch.max(torch.abs(a[1].cpu() - b[1])))
+            / float(torch.max(torch.abs(b[1]))),
+            cost_rel_err=abs(float(a[2]) - float(b[2])) / float(b[2]))
+        out[name + "_bf16"] = _bf16_assembly(cfg, ctx, ctx_h, beta, intr,
+                                             intr_h)
+    del ctx, ctx_h
+
+    res_c, res_h, cpu_s = _frame1_vs_cpu(cfg, intr, frames)
+    nudged = []
+    for scale in NUDGES:
+        with _gram_scaled(scale):
+            res = _frame1_solve(cfg, intr, state, frames[1], dev)
+        nudged.append(dict(device="card", scale=scale,
+                           **dict(zip(("beta_max_abs_diff", "cost_diff"),
+                                      _solve_diff(res, res_c)))))
+    with _gram_scaled(NUDGES[0]):
+        res = _frame1_solve(cfg, intr, state, frames[1], cpu)
+    nudged.append(dict(device="cpu", scale=NUDGES[0],
+                       **dict(zip(("beta_max_abs_diff", "cost_diff"),
+                                  _solve_diff(res, res_h)))))
+    beta_spread = max(n["beta_max_abs_diff"] for n in nudged)
+    cost_spread = max(n["cost_diff"] for n in nudged)
+    beta_err, cost_err = _solve_diff(res_c, res_h)
+    cost = float(res_c.cost)
+    rec = dict(phase="per_iteration_reference", assembly=out,
+               frame1_beta_max_abs_err=beta_err, frame1_cost_diff=cost_err,
+               frame1_cost=cost, frame1_cpu_cost=float(res_h.cost),
+               frame1_cpu_s=cpu_s, nudged=nudged,
+               beta_limit=2 * beta_spread, cost_limit=cost_spread)
+    emit(rec)
+    ok = all(v["jtr_err"] <= 1e-5 and v["cost_rel_err"] <= 1e-5 and (
+        v["rows_err"] <= 1e-5 and v["jtj_over_limit"] <= 0.0
+        if k.endswith("_bf16") else v["jtj_err"] <= 1e-5)
+        for k, v in out.items())
+    if not (ok and math.isfinite(cost) and beta_err <= 2 * beta_spread
+            and cost_err <= cost_spread):
+        raise RuntimeError(f"per_iteration frame 1 disagrees with the CPU "
+                           f"path: {rec}")
+    return launches, k2
+
+
+# The JAX README's accuracy table (480 x 640, 30 synthetic frames, 20
+# points), recorded by the JAX package: a reference beside the port's
+# numbers, not a gate.
+JAX_README_PX = {"lm": 0.37, "per_iteration": 2.92,
+                 "per_iteration_frozen": 0.57}
+
+
+def _pipeline_run(name, cfg, seq, dev, intr, seed=SEED, scale=None):
+    """SuPerPipeline over ``seq``'s PIPELINE_FRAMES frames with its GT
+    points (every tuple Gram scaled by ``scale`` where given): the
+    summary's record, and whether it tracks (a finite mean reprojection
+    error below 0.75 of the static error of the same GT, no tracking at
+    all, with more than 60% of the point-frames valid:
+    tests/test_pipeline.py's criterion)."""
+    from super_tpu_torch.pipeline import SuPerPipeline
+
+    n = PIPELINE_FRAMES
+    gt = seq.gt_xy[:n]
+    static = float(np.mean([np.linalg.norm(gt[t] - gt[0], axis=1).mean()
+                            for t in range(1, n)]))
+    t0 = time.perf_counter()
+    with _gram_scaled(scale) if scale else contextlib.nullcontext():
+        m = SuPerPipeline(cfg, intr, device=dev).run(
+            seq.depths[:n], seq.colors[:n], gt_xy=gt,
+            gt_valid=seq.gt_valid[:n])
+    rec = dict(phase="pipeline", run=name, seed=seed, gram_scale=scale,
+               frames=n, association=cfg.solver.association,
+               linear_solver=cfg.solver.linear_solver,
+               reproj_mean=m["reproj_mean"], reproj_std=m["reproj_std"],
+               frac_valid=m["frac_valid"], p50_frame_ms=m["p50_frame_ms"],
+               mean_frame_ms=m["mean_frame_ms"],
+               num_surfels=m["num_surfels"], num_nodes=m["num_nodes"],
+               overflow={k: v for k, v in m.items()
+                         if k.startswith("overflow_")},
+               static_error=static, jax_readme_px=JAX_README_PX.get(name),
+               seconds=time.perf_counter() - t0)
+    emit(rec)
+    return rec, (math.isfinite(m["reproj_mean"]) and m["frac_valid"] > 0.6
+                 and m["reproj_mean"] < 0.75 * static)
+
+
+def phase_pipeline(dev, intr, sequences):
+    """SuPerPipeline on PIPELINE_FRAMES synthetic 480 x 640 frames with the
+    20 GT points, for the headline, the dense graph, pcg_pallas, the
+    per-iteration association and the headline with the per-iteration-
+    frozen association; each must track (:func:`_pipeline_run`).  Then
+    the witnesses of the per-iteration path's spread: the same run with
+    every tuple Gram nudged (:data:`NUDGES`), and the headline and the
+    per-iteration path on the other draws of the GT points
+    (``sequences``: {seed: future of the sequence}); each must track
+    too."""
+    from super_tpu_torch.config import workload_config
+
+    lm = workload_config("lm")
+    per_it = workload_config("per_iteration")
+    runs = [(name, workload_config(name), SEED, None) for name in
+            ("lm", "dense16", "pcg_pallas", "per_iteration")]
+    runs.append(("per_iteration_frozen", lm.replace(
+        solver=dataclasses.replace(lm.solver,
+                                   association="per_iteration_frozen")),
+        SEED, None))
+    runs += [("per_iteration", per_it, SEED, scale) for scale in NUDGES]
+    for seed in sequences:
+        runs += [("lm", lm, seed, None), ("per_iteration", per_it, seed, None)]
+    results, bad = [], []
+    for name, cfg, seed, scale in runs:
+        if seed in sequences:
+            _SEQUENCES[(480, 640, seed)] = sequences[seed].result()
+        rec, ok = _pipeline_run(name, cfg, _sequence(lm, intr, PIPELINE_FRAMES,
+                                                     seed),
+                                dev, intr, seed=seed, scale=scale)
+        results.append(rec)
+        if not ok:
+            bad.append((name, seed, scale))
+    spread = {}
+    for name in ("lm", "per_iteration"):
+        px = [r["reproj_mean"] for r in results if r["run"] == name]
+        spread[name] = dict(runs=len(px), min=min(px), max=max(px),
+                            jax_readme_px=JAX_README_PX[name])
+    emit(dict(phase="pipeline_spread", **spread))
+    if bad:
+        raise RuntimeError(f"pipeline runs that do not track: {bad}")
+    return results
+
+
+def phase_bench(dev):
+    """python -m super_tpu_torch.bench's measurement at 6 frames."""
+    from super_tpu_torch import bench
+
+    out = bench.measure(reps=6, device=dev)
+    print(json.dumps(out), flush=True)
+    return out
+
+
 def _kernel_entry(name, source, replaces, launches, phase):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=launches, max_abs_err=phase["max_abs_err"],
                 ms=phase["ms"], plain_ms=phase["plain_ms"],
                 bound_ms=phase["bound_ms"], bound_by=phase["bound_by"],
-                library_ms=None)
+                library_ms=phase.get("library_ms"))
 
 
 def main() -> int:
@@ -864,6 +1343,7 @@ def main() -> int:
         return 2
     dev = torch.device("cuda", 0)
     import super_tpu_torch  # noqa: F401  (TF32 off, see its docstring)
+    from super_tpu_torch.config import workload_config
     from super_tpu_torch.core.losses import associate, prepare_lm
     from super_tpu_torch.core.tracker import init_tracker
 
@@ -880,7 +1360,14 @@ def main() -> int:
     k2 = phase_k2(dev, cfg, ctx, assoc)
     k2_fused = phase_k2_fused(dev, cfg, ctx, assoc)
     phase_pair_path(dev, "path_main", cfg, ctx, assoc, intr)
-    del state, ctx
+    segsum = phase_segsum(dev, "lm", cfg, ctx, assoc, intr)["pair_rows"]
+    pcg_cfg = workload_config("pcg_pallas")
+    pcg_ctx = prepare_lm(pcg_cfg, state.surfels, state.graph, frames[1])
+    phase_segsum(dev, "pcg_pallas", pcg_cfg, pcg_ctx,
+                 associate(pcg_cfg, pcg_ctx, intr), intr,
+                 only=("dense_blocks",))
+    del state, ctx, pcg_ctx
+    phase_repeat(dev, cfg, intr, frames)
     phase_reference(dev, cfg, intr, frames)
     dense_cfg, dense_launches = phase_dense(dev, intr, frames)
     state = init_tracker(dense_cfg, frames[0])
@@ -889,10 +1376,20 @@ def main() -> int:
     phase_k2(dev, dense_cfg, ctx, assoc, name="k2_dense")
     phase_k2_fused(dev, dense_cfg, ctx, assoc, name="k2_fused_dense")
     phase_pair_path(dev, "path_dense", dense_cfg, ctx, assoc, intr)
+    phase_segsum(dev, "dense16", dense_cfg, ctx, assoc, intr)
     del state, ctx, assoc
     solver_launches = phase_solvers(dev, intr, frames)
     phase_dense_path(dev, intr, frames)
-    phase_path_reference(intr, frames)
+    # The timed phases are done: the workers' CPU load costs only the
+    # CPU reference solves time from here on.
+    pool, sequences = _start_sequences(intr, PIPELINE_SEEDS)
+    try:
+        phase_path_reference(intr, frames)
+        per_it_launches, k2_per_it = phase_per_iteration(dev, intr, frames)
+        phase_pipeline(dev, intr, sequences)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    phase_bench(dev)
 
     emit({"kernels": [
         _kernel_entry("pairs_cg", "super_tpu_torch/csrc/pairs_cg.cu",
@@ -904,13 +1401,15 @@ def main() -> int:
                       dense_launches["pairs_cg_chunked"], k1b),
         _kernel_entry("tuple_gram", "super_tpu_torch/csrc/tuple_gram.cu",
                       "super_tpu/pallas_kernels/gram.py:33",
-                      launches["tuple_gram"], k2),
+                      per_it_launches["tuple_gram"], k2_per_it),
         _kernel_entry("data_gram", "super_tpu_torch/csrc/tuple_gram.cu",
                       "super_tpu/pallas_kernels/gram.py:33",
                       launches["data_gram"], k2_fused),
         _kernel_entry("dense_cg", "super_tpu_torch/csrc/dense_cg.cu",
                       "super_tpu/pallas_kernels/pcg.py:32",
                       solver_launches["dense_cg"], k3),
+        _kernel_entry("segment_sum", "super_tpu_torch/csrc/segment_sum.cu",
+                      None, launches["segment_sum"], segsum),
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -43,7 +43,8 @@ class LossConfig:
 class SolverConfig:
     """Per-frame warp-field solver settings.
 
-    The port runs the LM path with ``association="per_frame"``,
+    The port runs the LM path with ``association`` ``"per_frame"``,
+    ``"per_iteration"`` or ``"per_iteration_frozen"``,
     ``lm_hypotheses=1``, the tuple assembly with the pair expansion, either
     ``lm_schedule``, and the ``pairs_fused``, ``cholesky``, ``pcg`` and
     ``pcg_pallas`` solvers; the other values of these fields belong to
@@ -199,18 +200,23 @@ def lm_workload_config(height: int = 480, width: int = 640,
 
 # The named paths of the LM tracking step at 480 x 640 that chip_smoke.py
 # and profile_step.py drive.
-WORKLOADS = ("lm", "dense16", "pcg_pallas", "cholesky", "pcg")
+WORKLOADS = ("lm", "dense16", "pcg_pallas", "cholesky", "pcg",
+             "per_iteration")
 
 
 def workload_config(name: str) -> SuPerConfig:
     """A named path at 480 x 640: ``lm``, the headline (mesh step 30,
     pair-sparse CG by K1); ``dense16``, the dense ED graph (mesh step 16,
     K1b); ``pcg_pallas`` (K3), ``cholesky`` and ``pcg``, the headline with
-    that dense-matrix solver."""
+    that dense-matrix solver; ``per_iteration``, the headline with the
+    moving-target association (the JAX bench's ``per_iteration_hz``)."""
     if name not in WORKLOADS:
         raise ValueError(f"unknown workload {name!r}; one of {WORKLOADS}")
     cfg = lm_workload_config(480, 640, 16 if name == "dense16" else 30)
-    if name not in ("lm", "dense16"):
+    if name == "per_iteration":
+        cfg = cfg.replace(solver=dataclasses.replace(
+            cfg.solver, association="per_iteration"))
+    elif name not in ("lm", "dense16"):
         cfg = cfg.replace(solver=dataclasses.replace(cfg.solver,
                                                      linear_solver=name))
     return cfg

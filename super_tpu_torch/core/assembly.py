@@ -8,7 +8,9 @@ gradient rows to per-tuple Grams, and :func:`reduce_pairs` folds those into
 the distinct node-pair blocks the pair-sparse CG solve consumes, or
 :func:`expand_pairs` writes them into the dense (7J, 7J) normal matrix of
 the dense solvers.  Inactive surfels sort into the last tuple, a sink whose
-slots are masked.
+slots are masked.  Rows that share a pair or a node are added by the
+fixed-order segment sum (kernels/segsum.py), whose row order the layout
+sorts once a frame (``pair_plan``, ``node_plan``).
 
 The sorts reproduce the JAX package's total orders exactly: the tuple sort
 is one stable sort of a composite int64 key (ties fall back to the slot id,
@@ -22,6 +24,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from super_tpu_torch.core.state import set_columns_drop
+from super_tpu_torch.kernels.segsum import SegmentPlan, segment_plan, \
+    segment_sum
 
 
 class TupleLayout(NamedTuple):
@@ -45,6 +49,10 @@ class TupleLayout(NamedTuple):
     arap_rank: Optional[torch.Tensor] = None    # (J, K_ed, 3)
     arap_swap: Optional[torch.Tensor] = None    # (J, K_ed)
     live_end: Optional[torch.Tensor] = None     # () padded end of non-sink
+    # The fixed-order sums of reduce_pairs, sorted once a frame: pair rows
+    # by pair_rank10, tuple anchors' J^T r rows by node.
+    pair_plan: Optional[SegmentPlan] = None
+    node_plan: Optional[SegmentPlan] = None
 
 
 def build_tuple_layout(knn_idx, active, node_cap: int, *, tuple_cap: int,
@@ -103,10 +111,12 @@ def build_tuple_layout(knn_idx, active, node_cap: int, *, tuple_cap: int,
     tuple_nodes = torch.where(sizes[:, None] > 0, ki[:, member].T, 0)
 
     pair_fields = (None,) * 8
+    pair_plan = None
     if pair_cap > 0:
         pair_fields = build_pair_layout(tuple_nodes, node_cap,
                                         pair_cap=pair_cap,
                                         extra_pairs=extra_pairs)
+        pair_plan = segment_plan(pair_fields[5], pair_cap)
     i32 = torch.int32
     return TupleLayout(
         sort_perm=perm.to(i32), src_pos=pos.reshape(-1).to(i32),
@@ -116,7 +126,8 @@ def build_tuple_layout(knn_idx, active, node_cap: int, *, tuple_cap: int,
         pair_dest=pair_fields[2], pair_overflow=pair_fields[3],
         pair_key=pair_fields[4], pair_rank10=pair_fields[5],
         pair_swap10=pair_fields[6], pair_scale10=pair_fields[7],
-        live_end=torch.clamp(pend[tuple_cap - 2], max=np_cap).to(i32))
+        live_end=torch.clamp(pend[tuple_cap - 2], max=np_cap).to(i32),
+        pair_plan=pair_plan, node_plan=segment_plan(tuple_nodes, node_cap))
 
 
 def build_pair_layout(tuple_nodes, node_cap: int, *, pair_cap: int,
@@ -208,18 +219,6 @@ def pair_rank_lookup(pair_key, node_cap: int, pairs):
     return torch.where(hit, r, pair_cap - 1).reshape(p1.shape).to(torch.int32)
 
 
-def segment_sum(values, seg_ids, num_segments: int, sum_dtype=None):
-    """``zeros(num_segments, F).at[seg_ids].add(values)`` in f32.
-
-    ``sum_dtype="bf16"`` rounds the values to bf16 first and still sums in
-    f32: the semantics of the JAX package's bf16 one-hot segment matmul.
-    """
-    if sum_dtype == "bf16":
-        values = values.to(torch.bfloat16).to(torch.float32)
-    out = values.new_zeros((num_segments,) + tuple(values.shape[1:]))
-    return out.index_add_(0, seg_ids.long(), values)
-
-
 def _triu_pair_rows(layout: TupleLayout, gram):
     """(10T, 49) pair source rows from the per-tuple Grams: each tuple's
     triu anchor-pair blocks, stored transposed where the node pair came out
@@ -243,10 +242,8 @@ def reduce_pairs(layout: TupleLayout, gram, jtr_t, node_cap: int,
     t_cap = gram.shape[0]
     k = layout.tuple_nodes.shape[1]
     rows = _triu_pair_rows(layout, gram)
-    pair_cap = layout.pair_dest.shape[0]
-    acc = segment_sum(rows, layout.pair_rank10, pair_cap, sum_dtype=sum_dtype)
-    jtr = segment_sum(-jtr_t.reshape(t_cap * k, 7),
-                      layout.tuple_nodes.reshape(-1), node_cap)
+    acc = segment_sum(rows, layout.pair_plan, sum_dtype=sum_dtype)
+    jtr = segment_sum(-jtr_t.reshape(t_cap * k, 7), layout.node_plan)
     return acc, jtr
 
 

@@ -14,6 +14,7 @@ import torch
 from super_tpu_torch.config import SuPerConfig
 from super_tpu_torch.core.state import FrameData, GraphState
 from super_tpu_torch.geometry.quaternion import cross
+from super_tpu_torch.kernels.segsum import segment_plan, segment_sum
 
 
 def grid_layout(height: int, width: int, step: int):
@@ -102,12 +103,12 @@ def build_graph(cfg: SuPerConfig, frame: FrameData) -> GraphState:
     edge_lens = torch.sqrt(torch.sum(dvec * dvec, dim=1))
     edge_lens = torch.where(edge_active, edge_lens, 0.0).to(dtype)
 
-    ea = edge_active.to(dtype)
-    len_sum = torch.zeros((g,), dtype=dtype, device=dev)
-    len_sum = len_sum.index_add(0, el[:, 0], edge_lens).index_add(
-        0, el[:, 1], edge_lens)
-    cnt = torch.zeros((g,), dtype=dtype, device=dev)
-    cnt = cnt.index_add(0, el[:, 0], ea).index_add(0, el[:, 1], ea)
+    # Incident edge lengths and counts per node, both ends, in a fixed
+    # order.
+    ends = torch.stack([edge_lens, edge_active.to(dtype)], dim=1)
+    sums = segment_sum(torch.cat([ends, ends]),
+                       segment_plan(torch.cat([el[:, 0], el[:, 1]]), g))
+    len_sum, cnt = sums[:, 0], sums[:, 1]
     radii = len_sum / torch.clamp(cnt, min=1.0)
     has_r = (cnt > 0) & active
     mean_r = torch.sum(torch.where(has_r, radii, 0.0)) / torch.clamp(

@@ -1,6 +1,7 @@
 """Levenberg-Marquardt warp solve (counterpart of super_tpu/core/lm.py:
-the deferred and classic schedules with the per-frame association, and the
-pairs_fused, cholesky, pcg and pcg_pallas solvers).
+the deferred and classic schedules with the per-frame, per-iteration and
+per-iteration-frozen associations, and the pairs_fused, cholesky, pcg and
+pcg_pallas solvers).
 
 The loop has a fixed trip count and branch-free accept/reject
 (``torch.where``), so a frame runs without host syncs.  In the deferred
@@ -332,12 +333,12 @@ def lm_solve(cfg: SuPerConfig, ctx: LMContext, intr: Intrinsics) -> LMResult:
             "Cholesky would materialize an f32 copy, defeating the bf16 "
             "accumulator's memory purpose)")
     if sol.lm_schedule not in ("deferred", "classic") or \
-            sol.lm_hypotheses != 1 or sol.association != "per_frame" or \
-            not cfg.losses.sf_point_plane:
+            sol.lm_hypotheses != 1 or sol.association not in (
+                "per_frame", "per_iteration", "per_iteration_frozen"):
         raise NotImplementedError(
             "the port runs the deferred and classic schedules with "
-            "lm_hypotheses=1 and association='per_frame' with the "
-            "point-plane term")
+            "lm_hypotheses=1 and the per_frame, per_iteration and "
+            "per_iteration_frozen associations")
     j_cap = ctx.ed_mask.shape[0]
     dim = 7 * j_cap
     dtype = ctx.d_eds.dtype
@@ -347,12 +348,25 @@ def lm_solve(cfg: SuPerConfig, ctx: LMContext, intr: Intrinsics) -> LMResult:
     beta0[:, 0] = 1.0
     u0 = torch.full((), sol.lm_damping_init, dtype=dtype, device=dev)
     v = sol.lm_damping_factor
-    with record_function("lm.associate"):
-        assoc = associate(cfg, ctx, intr)
+    # The association: "per_frame" once at the identity warp (the cost
+    # passes reuse it); "per_iteration_frozen" anew at every assembly's
+    # beta, with the cost passes sampling as "per_iteration" does; with no
+    # association the data term follows the moving target.  Without the
+    # point-plane term there is none.
+    point_plane = cfg.losses.sf_point_plane
+    assoc = None
+    if sol.association == "per_frame" and point_plane:
+        with record_function("lm.associate"):
+            assoc = associate(cfg, ctx, intr)
+    per_it_frozen = sol.association == "per_iteration_frozen" and point_plane
 
     def assemble(beta):
         with record_function("lm.assemble"):
-            return assemble_normal_equations(cfg, ctx, beta, intr, assoc)
+            a = assoc
+            if per_it_frozen:
+                with record_function("lm.associate"):
+                    a = associate(cfg, ctx, intr, beta=beta)
+            return assemble_normal_equations(cfg, ctx, beta, intr, a)
 
     def solve(jtj, jtr, u, x0):
         with record_function("lm.solve"):

@@ -1,19 +1,26 @@
 """Residuals and normal equations of the LM warp solve (counterpart of the
 tuple-mode parts of super_tpu/core/losses.py).
 
-The data term is point-to-plane ICP against a frozen per-frame association
-(``association="per_frame"``): each iteration re-linearises only the warp.
-Per LM trip kernel K2 computes the gradient row and residual of every
-padded slot in registers and reduces them to per-tuple Grams
-(kernels/gram.py:data_gram) -- the JAX package's ``assembly_backend=
+The data term is point-to-plane ICP.  Against a frozen association (an
+:class:`Assoc`: once a frame at the identity warp for ``association=
+"per_frame"``, at every candidate for ``"per_iteration_frozen"``) each
+trip re-linearises only the warp: kernel K2 computes the gradient row and
+residual of every padded slot in registers and reduces them to per-tuple
+Grams (kernels/gram.py:data_gram) -- the JAX package's ``assembly_backend=
 "pallas"`` branch with its row math (``frozen_chunk_partial_fm``) fused
-in; :func:`data_rows` gives the same rows in plain PyTorch.  With the
-``pairs_fused`` solver :func:`assembly.reduce_pairs` folds the Grams into
-the pair-sparse normal equations and the graph-sized ARAP and rotation
-terms add their blocks in the same pair form; the dense solvers
-(``cholesky``, ``pcg``, ``pcg_pallas``) get the (7J, 7J) matrix from
-:func:`assembly.expand_pairs` with the graph terms' blocks added into it
-(:func:`_add_blocks`).
+in; :func:`data_rows` gives the same rows in plain PyTorch.  With no
+association (``"per_iteration"``, the moving target) each trip projects
+the warped surfels, samples the target bank with its gradients and writes
+the full-chain rows to memory (:func:`moving_rows`, the algebra of the JAX
+package's ``moving_chunk_partial_fm``), which K2's memory form
+(kernels/gram.py:tuple_gram) reduces.  With the ``pairs_fused`` solver
+:func:`assembly.reduce_pairs` folds the Grams into the pair-sparse normal
+equations and the graph-sized ARAP and rotation terms add their blocks in
+the same pair form; the dense solvers (``cholesky``, ``pcg``,
+``pcg_pallas``) get the (7J, 7J) matrix from :func:`assembly.expand_pairs`
+with the graph terms' blocks added into it.  Every sum over rows that
+share a destination goes through the fixed-order segmented sum
+(kernels/segsum.py), sorted once a frame in :func:`prepare_lm`.
 
 The plain versions compute all slots (no stop at ``layout.live_end``):
 sink and padding slots are masked to exact zeros.  The kernel finds the
@@ -24,7 +31,7 @@ reach the host.
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -37,7 +44,9 @@ from super_tpu_torch.geometry.quaternion import (
     transform_quat_t,
     transform_quat_t_jac,
 )
-from super_tpu_torch.kernels.gram import data_gram
+from super_tpu_torch.kernels.gram import data_gram, tuple_gram
+from super_tpu_torch.kernels.segsum import SegmentPlan, segment_plan, \
+    segment_sum
 from super_tpu_torch.ops.bilinear import (
     bilinear_sample_bank_z_fm,
     build_corner_bank_z,
@@ -62,10 +71,16 @@ class LMContext(NamedTuple):
     ed_skew: torch.Tensor          # (J, K_ed, 3, 3)
     layout: assembly.TupleLayout
     slot_tuple: torch.Tensor       # (Np,) tuple id of every padded slot
+    # Fixed-order sums of the graph terms, sorted once a frame: the ARAP
+    # J^T r rows by node; with pairs_fused the graph rows by pair rank,
+    # else the graph blocks' rows by (matrix row, node column).
+    arap_plan: Optional[SegmentPlan] = None
+    graph_plan: Optional[SegmentPlan] = None
+    block_plan: Optional[SegmentPlan] = None
 
 
 class Assoc(NamedTuple):
-    """Frozen per-frame association: target point/normal per slot."""
+    """Frozen association: target point/normal per slot."""
 
     o: torch.Tensor     # (3, Np)
     n: torch.Tensor     # (3, Np)
@@ -131,6 +146,7 @@ def prepare_lm(cfg: SuPerConfig, surfels: SurfelState, graph: GraphState,
     ed_idx = graph.knn_idx.long()
     d_eds = graph.points[:, None, :] - graph.points[ed_idx]
     index_map = frame.index_map(cfg.height, cfg.width)
+    arap_plan, graph_plan, block_plan = _graph_plans(cfg, layout, nb, self_b)
     return LMContext(
         sf_mask=layout.slot_valid & (packed[0] > 0.5),
         sf_knn_w=packed[1:1 + k],
@@ -148,7 +164,56 @@ def prepare_lm(cfg: SuPerConfig, surfels: SurfelState, graph: GraphState,
         ed_skew=skew(d_eds),
         layout=layout,
         slot_tuple=layout.block_tuple.long().repeat_interleave(g),
+        arap_plan=arap_plan, graph_plan=graph_plan, block_plan=block_plan,
     )
+
+
+def _graph_blocks(cfg: SuPerConfig, nb, self_b):
+    """The graph terms' (row node, column node) blocks in the order
+    :func:`assemble_normal_equations` adds them: the ARAP term's (a, b) in
+    (0, 0), (0, 1), (1, 0), (1, 1), with node 0 the ED neighbour and node 1
+    the node itself, then the rotation term's diagonal."""
+    nodes = (nb.reshape(-1), self_b.reshape(-1))
+    rows, cols = [], []
+    if cfg.losses.mesh_arap:
+        for a in range(2):
+            for b in range(2):
+                rows.append(nodes[a])
+                cols.append(nodes[b])
+    if cfg.losses.mesh_rot:
+        diag = self_b[:, 0]
+        rows.append(diag)
+        cols.append(diag)
+    return rows, cols
+
+
+def _graph_plans(cfg: SuPerConfig, layout, nb, self_b):
+    """The graph terms' segment plans (:class:`LMContext`)."""
+    j_cap = nb.shape[0]
+    arap_plan = graph_plan = block_plan = None
+    if cfg.losses.mesh_arap:
+        arap_plan = segment_plan(torch.cat([nb.reshape(-1),
+                                            self_b.reshape(-1)]), j_cap)
+    rows, cols = _graph_blocks(cfg, nb, self_b)
+    if not rows:
+        return arap_plan, graph_plan, block_plan
+    if cfg.solver.linear_solver == "pairs_fused":
+        ranks = []
+        if cfg.losses.mesh_arap:
+            ranks += list(layout.arap_rank.reshape(-1, 3).T)
+        if cfg.losses.mesh_rot:
+            ranks.append(layout.diag_rank)
+        graph_plan = segment_plan(torch.cat(ranks),
+                                  layout.pair_dest.shape[0])
+    else:
+        # Row i of block (r, c) is 7 entries of matrix row 7 r + i at
+        # column 7 c: segment (7 r + i) J + c of the matrix as (7J J, 7).
+        r = torch.cat(rows).long()
+        c = torch.cat(cols).long()
+        seven = torch.arange(7, device=r.device)
+        ids = (7 * r[:, None] + seven[None, :]) * j_cap + c[:, None]
+        block_plan = segment_plan(ids, 7 * j_cap * j_cap)
+    return arap_plan, graph_plan, block_plan
 
 
 @functools.lru_cache(maxsize=None)
@@ -237,18 +302,35 @@ def _rows_fm_batched(m_fm, w_fm, diff_fm, beta_kfm):
     return torch.cat([w_fm * ndq_w, w12 * ndq_v, w12 * m_b], dim=0)[hperm]
 
 
-def associate(cfg: SuPerConfig, ctx: LMContext, intr: Intrinsics) -> Assoc:
-    """Projective association at the identity warp (the JAX package's
-    ``associate(..., identity=True)``): the blend returns each surfel's own
-    point, so the pass is projection plus corner-bank sampling."""
+def _blend_warp(ctx: LMContext, beta):
+    """(3, Np) warped points of every slot; ``beta=None`` is the identity
+    warp, where the blend returns each surfel's own point."""
     _, w_fm, knn_fm, diff_fm = _geom(ctx)
+    if beta is not None:
+        return _warp_fm_batched(w_fm, knn_fm, diff_fm, _beta_fm(ctx, beta))
     k = w_fm.shape[0]
     _, _, rep3, _ = _k_perms(k, w_fm.device)
-    tp = _sum_k(w_fm[rep3] * (diff_fm + knn_fm), k)
+    return _sum_k(w_fm[rep3] * (diff_fm + knn_fm), k)
+
+
+def _project_sample(cfg: SuPerConfig, ctx: LMContext, tp, intr: Intrinsics,
+                    grad: bool = False):
+    """Project (3, Np) warped points and sample the target bank there:
+    (o, n, mask), plus the sampling gradients (go_u, go_v, gn_u, gn_v) with
+    ``grad`` (the JAX package's ``_project_sample_fm``)."""
     v, u, _, proj_valid = project_points(tp, intr, cfg.height, cfg.width)
-    o, n, svalid = bilinear_sample_bank_z_fm(ctx.trg_corner_bank, intr,
-                                             cfg.height, cfg.width, v, u)
-    return Assoc(o=o, n=n, mask=ctx.sf_mask & proj_valid & svalid)
+    out = bilinear_sample_bank_z_fm(ctx.trg_corner_bank, intr, cfg.height,
+                                    cfg.width, v, u, compute_grad=grad)
+    return (out[0], out[1], ctx.sf_mask & proj_valid & out[2]) + out[3:]
+
+
+def associate(cfg: SuPerConfig, ctx: LMContext, intr: Intrinsics,
+              beta=None) -> Assoc:
+    """Projective association at ``beta`` (the JAX package's
+    ``associate``); the default is the identity warp (``identity=True``
+    there), where the pass is projection plus corner-bank sampling."""
+    o, n, mask = _project_sample(cfg, ctx, _blend_warp(ctx, beta), intr)
+    return Assoc(o=o, n=n, mask=mask)
 
 
 def _frozen_residual(ctx, beta, assoc: Assoc, weight: float, geom=None):
@@ -262,9 +344,16 @@ def _frozen_residual(ctx, beta, assoc: Assoc, weight: float, geom=None):
 
 
 def data_term_cost(cfg: SuPerConfig, ctx: LMContext, beta, intr: Intrinsics,
-                   weight: float, assoc: Assoc):
-    """sum(r^2) of the point-plane term against the frozen association."""
-    r, _, _ = _frozen_residual(ctx, beta, assoc, weight)
+                   weight: float, assoc: Optional[Assoc] = None):
+    """sum(r^2) of the point-plane term: against the frozen association,
+    or with none by sampling the target bank at the warped points (the
+    JAX package's ``_residual_of``)."""
+    if assoc is None:
+        tp = _blend_warp(ctx, beta)
+        o, n, mask = _project_sample(cfg, ctx, tp, intr)
+        r = torch.where(mask, weight * torch.sum(n * (tp - o), dim=0), 0.0)
+    else:
+        r, _, _ = _frozen_residual(ctx, beta, assoc, weight)
     return torch.sum(r * r)
 
 
@@ -279,18 +368,60 @@ def data_rows(ctx: LMContext, beta, weight: float, assoc: Assoc):
     return h.T.contiguous(), r
 
 
+def moving_rows(cfg: SuPerConfig, ctx: LMContext, beta, intr: Intrinsics,
+                weight: float):
+    """Moving-target gradient rows h (Np, 28) and residuals r (Np,) of
+    every padded slot, masked to zeros (the input of K2's memory form).
+
+    The JAX package's ``moving_chunk_partial_fm`` algebra: the full chain
+    through the projection and the bilinear sample collapses to the
+    frozen-target rows with the effective normal
+    m = n + dpi^T [(tp - o) . dn/dpi - n . dp/dpi]; r = w n . (tp - o)."""
+    geom = _geom(ctx)
+    _, w_fm, _, diff_fm = geom
+    beta_kfm = _beta_fm(ctx, beta)
+    tp = _warp_fm_batched(w_fm, geom[2], diff_fm, beta_kfm)
+    o, n, mask, go_u, go_v, gn_u, gn_v = _project_sample(cfg, ctx, tp, intr,
+                                                         grad=True)
+    d = tp - o
+    y0 = torch.sum(d * gn_u, dim=0) - torch.sum(n * go_u, dim=0)
+    y1 = torch.sum(d * gn_v, dim=0) - torch.sum(n * go_v, dim=0)
+    z = tp[2] + 1e-8
+    m = torch.stack([
+        n[0] + intr.fx / z * y0,
+        n[1] + intr.fy / z * y1,
+        n[2] - intr.fx * tp[0] / (z * z) * y0
+        - intr.fy * tp[1] / (z * z) * y1,
+    ])
+    r = torch.where(mask, weight * torch.sum(n * d, dim=0), 0.0)
+    rows = _rows_fm_batched(m, w_fm, diff_fm, beta_kfm)
+    h = torch.where(mask[None], weight * rows, 0.0)
+    return h.T.contiguous(), r
+
+
 def data_normal_equations(cfg: SuPerConfig, ctx: LMContext, beta,
-                          weight: float, assoc: Assoc):
+                          weight: float, assoc: Optional[Assoc],
+                          intr: Intrinsics):
     """Data term: (jtj, jtr (J, 7), cost), with jtj the (P, 49) pair form
     for ``pairs_fused`` and the dense (7J, 7J) matrix otherwise.
 
-    Kernel K2 computes each slot's row and residual and their per-tuple
-    Grams in one pass (kernels/gram.py:data_gram), then the pair reduction
-    or the pair expansion.
+    Against a frozen association kernel K2 computes each slot's row and
+    residual and their per-tuple Grams in one pass (kernels/gram.py:
+    data_gram); with none the moving-target rows go to memory and K2's
+    memory form reduces them (kernels/gram.py:tuple_gram).  Then the pair
+    reduction or the pair expansion.
     """
     sol = cfg.solver
-    gram, jtr_t, cost = data_gram(ctx, beta, weight, assoc,
-                                  block=sol.assembly_pad_group)
+    if assoc is None:
+        h, r = moving_rows(cfg, ctx, beta, intr, weight)
+        layout = ctx.layout
+        gram, jtr_t = tuple_gram(h, r, layout.block_tuple,
+                                 tuple_cap=layout.tuple_nodes.shape[0],
+                                 block=sol.assembly_pad_group)
+        cost = torch.sum(r * r)
+    else:
+        gram, jtr_t, cost = data_gram(ctx, beta, weight, assoc,
+                                      block=sol.assembly_pad_group)
     fold = assembly.reduce_pairs if sol.linear_solver == "pairs_fused" \
         else assembly.expand_pairs
     jtj, jtr7 = fold(
@@ -342,23 +473,15 @@ def rot_term_jacobian(beta, active, weight: float):
             active)
 
 
-def _add_blocks(jtj, rows_nodes, cols_nodes, vals):
-    """``jtj.at[r, c].add(vals)`` of the JAX package: 7x7 blocks (R, 7, 7)
-    added into the dense (7J, 7J) matrix at node rows/columns (R,)."""
-    dim = jtj.shape[0]
-    seven = torch.arange(7, device=jtj.device)
-    r = rows_nodes.long()[:, None, None] * 7 + seven[:, None]
-    c = cols_nodes.long()[:, None, None] * 7 + seven[None, :]
-    return jtj.reshape(-1).index_add(0, (r * dim + c).reshape(-1),
-                                     vals.reshape(-1)).reshape(dim, dim)
-
-
 def assemble_normal_equations(cfg: SuPerConfig, ctx: LMContext, beta,
-                              intr: Intrinsics, assoc: Assoc):
+                              intr: Intrinsics, assoc: Optional[Assoc]):
     """Normal equations and cost at ``beta``: (jtj, jtr (7J,), cost).
 
     jtj is the (P, 49) pair form (symmetric-half pair blocks) for the
     ``pairs_fused`` solver, the dense (7J, 7J) matrix for the others.
+    ``assoc=None``: the data term's moving target (see
+    :func:`data_normal_equations`).  The graph terms' blocks and J^T r rows
+    are summed in a fixed order by the plans of :func:`prepare_lm`.
     """
     _check_supported(cfg)
     j_cap = ctx.ed_mask.shape[0]
@@ -373,19 +496,18 @@ def assemble_normal_equations(cfg: SuPerConfig, ctx: LMContext, beta,
     cost = beta.new_zeros(())
     if losses.sf_point_plane:
         jtj, jtr, cost = data_normal_equations(
-            cfg, ctx, beta, losses.sf_point_plane_weight, assoc)
+            cfg, ctx, beta, losses.sf_point_plane_weight, assoc, intr)
 
-    graph_rows, graph_ranks = [], []
+    graph_rows, blocks = [], []
     if losses.mesh_arap:
         r, g, idx, _ = arap_term_jacobian(ctx, beta, losses.mesh_arap_weight)
         cost = cost + torch.sum(r * r)
         jk = r.shape[0] * r.shape[1]
         r2 = r.reshape(jk, 3)
         g2 = g.reshape(jk, 3, 2, 7)
-        idx2 = idx.reshape(jk, 2)
-        for a in range(2):
-            jtr = jtr.index_add(0, idx2[:, a], -torch.einsum(
-                "rci,rc->ri", g2[:, :, a, :], r2))
+        jtr = segment_sum(torch.cat([
+            -torch.einsum("rci,rc->ri", g2[:, :, a, :], r2)
+            for a in range(2)]), ctx.arap_plan, base=jtr)
         if pairs_fused:
             # Distinct-pair rows under the symmetric-half convention
             # (diagonal pairs halved, off-diagonal oriented min -> max).
@@ -396,14 +518,9 @@ def assemble_normal_equations(cfg: SuPerConfig, ctx: LMContext, beta,
             boff = torch.where(swap[:, None, None], b01.transpose(1, 2), b01)
             graph_rows += [0.5 * b00.reshape(jk, 49),
                            0.5 * b11.reshape(jk, 49), boff.reshape(jk, 49)]
-            ar = layout.arap_rank.reshape(jk, 3)
-            graph_ranks += [ar[:, 0], ar[:, 1], ar[:, 2]]
         else:
-            for a in range(2):
-                for b in range(2):
-                    blk = torch.einsum("rci,rcj->rij", g2[:, :, a],
-                                       g2[:, :, b])
-                    jtj = _add_blocks(jtj, idx2[:, a], idx2[:, b], blk)
+            blocks += [torch.einsum("rci,rcj->rij", g2[:, :, a], g2[:, :, b])
+                       for a in range(2) for b in range(2)]
     if losses.mesh_rot:
         r, g, _ = rot_term_jacobian(beta, ctx.ed_mask, losses.mesh_rot_weight)
         cost = cost + torch.sum(r * r)
@@ -411,20 +528,23 @@ def assemble_normal_equations(cfg: SuPerConfig, ctx: LMContext, beta,
         ggt = g[:, :, None] * g[:, None, :]
         if pairs_fused:
             graph_rows.append(0.5 * ggt.reshape(j_cap, 49))
-            graph_ranks.append(layout.diag_rank)
         else:
-            diag = torch.arange(j_cap, device=beta.device)
-            jtj = _add_blocks(jtj, diag, diag, ggt)
+            blocks.append(ggt)
     if graph_rows:
-        jtj = jtj + assembly.segment_sum(torch.cat(graph_rows),
-                                         torch.cat(graph_ranks),
-                                         jtj.shape[0])
+        jtj = jtj + segment_sum(torch.cat(graph_rows), ctx.graph_plan)
+    if blocks:
+        # The blocks' rows added at (matrix row, node column): the JAX
+        # package's ``jtj.at[r, c].add(blocks)``, in the same order.
+        dim = 7 * j_cap
+        jtj = segment_sum(torch.cat(blocks).reshape(-1, 7), ctx.block_plan,
+                          base=jtj.reshape(dim * j_cap, 7)).reshape(dim, dim)
     return jtj, jtr.reshape(7 * j_cap), cost
 
 
 def total_cost(cfg: SuPerConfig, ctx: LMContext, beta, intr: Intrinsics,
-               assoc: Assoc):
-    """Scalar objective of the LM accept/reject test."""
+               assoc: Optional[Assoc]):
+    """Scalar objective of the LM accept/reject test; the data term by
+    sampling the target at ``beta`` where ``assoc`` is None."""
     losses = cfg.losses
     total = beta.new_zeros(())
     if losses.sf_point_plane:

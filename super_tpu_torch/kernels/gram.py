@@ -6,11 +6,12 @@ Replaces super_tpu/pallas_kernels/gram.py (``_gram_kernel`` behind
 (its bound and design are stated there), with two row sources:
 
 - :func:`tuple_gram`: the gradient rows and residuals from memory, the TPU
-  kernel's own function;
+  kernel's own function; the LM step runs it with the moving target
+  (``association="per_iteration"``, core/losses.py:moving_rows);
 - :func:`data_gram`: the data term's rows computed in the kernel from the LM
-  context and the frozen association, so that they never reach device
+  context and a frozen association, so that they never reach device
   memory (the JAX package's ``frozen_chunk_partial_fm``); the form the LM
-  step runs.
+  step runs with the per-frame and per-iteration-frozen associations.
 
 Each takes its plain version for CPU tensors only; for CUDA tensors it
 launches its kernel or raises.

@@ -7,7 +7,8 @@ Runs a path of the LM tracking step at 480 x 640 (config.workload_config):
 ``lm``, the headline (mesh step 30, J = 384, pair-sparse CG by K1);
 ``dense16``, the dense ED graph (mesh step 16, J = 1216, K1b);
 ``pcg_pallas``, ``cholesky`` or ``pcg``, the headline with that
-dense-matrix solver (K3 for ``pcg_pallas``).
+dense-matrix solver (K3 for ``pcg_pallas``); ``per_iteration``, the
+headline with the moving-target association (K1, K2's memory form).
 Frame 0 initialises, one frame warms up, one runs under CUDA's sync debug
 mode to find any host sync in the step, then ``--frames`` frames run with
 tracing off, each timed on the host clock around a synchronised step, and

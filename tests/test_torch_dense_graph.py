@@ -150,9 +150,13 @@ def test_lm_workload_config_matches_bench(monkeypatch, mesh_step):
 def test_workload_config_names_bench_paths(monkeypatch, name):
     """Each named path of chip_smoke.py and profile_step.py is the bench's
     workload (mesh step 16 for dense16, else 30) with only linear_solver
-    replaced for the dense-matrix solvers; an unknown name raises."""
+    replaced for the dense-matrix solvers, and only the association for
+    per_iteration (the bench's per_iteration_hz workload); an unknown name
+    raises."""
     step = 16 if name == "dense16" else 30
     solver = {} if name in ("lm", "dense16") else dict(linear_solver=name)
+    if name == "per_iteration":
+        solver = dict(association="per_iteration")
     assert workload_config(name) == _bench_config(monkeypatch, step,
                                                   **solver)
     with pytest.raises(ValueError):

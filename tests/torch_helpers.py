@@ -31,6 +31,40 @@ def slice_config(gram_sum_dtype="f32"):
         assembly_backend="pallas", gram_sum_dtype=gram_sum_dtype))
 
 
+def headline_grid_config(**solver):
+    """The port's workload config at 240 x 320, mesh step 15, as a JAX
+    package config: the headline's 22 x 16 grid of ED node anchors (352 in
+    a capacity of 384, as at 480 x 640 and step 30) and its assembly
+    settings (``lm_workload_config``: pad group 64, tuple and pair caps
+    4096) at a quarter of its pixels; ``solver`` overrides."""
+    from super_tpu import config as jconfig
+    from super_tpu_torch.config import lm_workload_config
+
+    pc = lm_workload_config(240, 320, 15)
+    return jconfig.SuPerConfig(
+        height=pc.height, width=pc.width, mesh_step_size=pc.mesh_step_size,
+        capacity=jconfig.CapacityConfig(**dataclasses.asdict(pc.capacity)),
+        solver=jconfig.SolverConfig(**dict(dataclasses.asdict(pc.solver),
+                                           **solver)))
+
+
+def pipeline_pair(cfg, seq):
+    """The JAX package's SuPerPipeline and the port's (on the CPU) over
+    ``seq`` with its GT points: (JAX summary, port summary, port
+    pipeline)."""
+    from super_tpu.pipeline import SuPerPipeline
+    from super_tpu_torch.data.synthetic import default_intrinsics as tintr
+    from super_tpu_torch.pipeline import SuPerPipeline as TSuPerPipeline
+
+    h, w = cfg.height, cfg.width
+    ref = SuPerPipeline(cfg, default_intrinsics(h, w))
+    port = TSuPerPipeline(port_config(cfg), tintr(h, w, device="cpu"),
+                          device="cpu")
+    ref_m, port_m = (p.run(seq.depths, seq.colors, gt_xy=seq.gt_xy,
+                           gt_valid=seq.gt_valid) for p in (ref, port))
+    return ref_m, port_m, port
+
+
 def port_config(cfg):
     return convert.config_from_dict(dataclasses.asdict(cfg))
 
