@@ -19,11 +19,20 @@ results are right:
   ``linear_solver="pcg_pallas"`` (K3, ``data_gram``), then ``"cholesky"``
   and ``"pcg"``;
 - per_iteration: the headline with the moving-target association (K1 and
-  K2's memory form, ``tuple_gram``: the rows written to memory).
+  K2's memory form, ``tuple_gram``: the rows written to memory);
+- semantic: the autograd Semantic-SuPer fit, ``workload_config("semantic")``
+  (Adam, 10 steps a frame, soft-seg ICP, face, rotation and boundary-morph
+  losses, the generator's two-class segmentations), which runs no TPU
+  kernel's counterpart.
 
-Every path sums its assembly's shared destinations with the fixed-order
+Every LM path sums its assembly's shared destinations with the fixed-order
 segment sum (``csrc/segment_sum.cu``) four times a trip, and the node radii
-once at frame 0.
+once at frame 0; the semantic path sums its backward pass's rows into the
+nodes with it twice a fit step (``semantic``: 3 frames; ``segsum_semantic``
+holds it to its plain version on those sums and on the soft splat's pixel
+sums; ``repeat_semantic`` tracks 3 frames twice, bitwise;
+``semantic_reference`` holds frame 1's losses, gradients and fit to the
+CPU path).
 
 K2's two forms, one template (rows from memory, ``tuple_gram``, and rows
 from the data term, ``data_gram``), are each checked on the headline's and
@@ -50,8 +59,11 @@ to agree bit for bit; ``pipeline`` runs SuPerPipeline on 30 frames with
 ground truth for five configurations, the per-iteration one also with
 its Grams nudged by f32 roundings and on two other draws of the GT
 points, and requires each to track (reprojection error against the
-static error); ``bench`` prints ``python -m super_tpu_torch.bench``'s
-line at 6 frames.
+static error), then the semantic workload (below the static error, as
+tests/test_semantic.py asks), tests/test_semantic.py's configuration with
+the render loss and ``semantic_super_config()`` (SGD) at full size;
+``bench`` prints ``python -m super_tpu_torch.bench``'s line at 6 frames,
+``semantic_hz`` with it.
 
 Launch counts are set to 0 just before a path runs and read just after.
 Each phase prints one JSON line; any failure raises and exits non-zero.  The
@@ -90,6 +102,13 @@ PIPELINE_SEEDS = (1, 2)            # other draws of the 20 GT points
 # rows and tuple J^T r rows, the ARAP J^T r rows and the graph terms' pair
 # rows (or dense blocks); once a track, the node radii at frame 0.
 SEGSUM_PER_TRIP, SEGSUM_AT_INIT = 4, 1
+# The semantic workload's classes.  The generator's depths, colours and GT
+# points do not depend on them, so every path reads one sequence.
+SEMANTIC_CLASSES = 2
+# Per iteration of the semantic fit, the backward pass's sums of the
+# G-blocks' anchor rows and of the triangle corners into the nodes (with
+# the render loss also the soft splat's pixel sums, forward).
+SEGSUM_PER_FIT_STEP = 2
 
 
 def emit(obj):
@@ -676,7 +695,8 @@ def _sequence(cfg, intr, n, seed=SEED):
     if key not in _SEQUENCES or len(_SEQUENCES[key].depths) < n:
         full = max(n, PIPELINE_FRAMES if key[:2] == (480, 640) else n)
         _SEQUENCES[key] = generate(full, cfg.height, cfg.width,
-                                   intr=_camera(intr), seed=seed)
+                                   intr=_camera(intr), seed=seed,
+                                   num_classes=SEMANTIC_CLASSES)
     return _SEQUENCES[key]
 
 
@@ -698,7 +718,10 @@ def _frames(cfg, intr, n, dev, seed=SEED):
 
     seq = _sequence(cfg, intr, n, seed)
     colors = np.ascontiguousarray(seq.colors[:n].transpose(0, 3, 1, 2))
+    sem = cfg.method == "semantic-super"
     return [preprocess_frame(cfg, intr, seq.depths[t], colors[t], float(t),
+                             seg=seq.segs[t] if sem else None,
+                             seg_conf=seq.seg_confs[t] if sem else None,
                              device=dev) for t in range(n)]
 
 
@@ -979,58 +1002,62 @@ def phase_segsum(dev, path, cfg, ctx, assoc, intr, only=None):
     dense-matrix paths, the graph blocks; ``only``: the names to hold):
     max abs error <= 1e-6 of the largest sum, two launches bitwise equal;
     the kernel's time, the plain version's, index_add_'s alone and the
-    bound.  Returns {name: record}."""
-    from super_tpu_torch.kernels.segsum import segment_sum, segment_sum_plain
-
+    bound (:func:`_segsum_check`).  Returns {name: record}."""
     last = ("graph_rows" if cfg.solver.linear_solver == "pairs_fused"
             else "dense_blocks")
     calls, _ = _capture_sums(cfg, ctx, _perturbed_beta(cfg, dev), intr,
                              assoc)
     cases = [c for c in zip(("pair_rows", "node_jtr", "arap_jtr", last),
                             calls) if only is None or c[0] in only]
-    records = {}
-    for name, (values, plan, kw) in cases:
-        out_k, out_k2 = segment_sum(values, plan, **kw), \
-            segment_sum(values, plan, **kw)
-        out_p = segment_sum_plain(values, plan, **kw)
-        torch.cuda.synchronize()
-        err = float(torch.max(torch.abs(out_k - out_p)))
-        scale = float(torch.max(torch.abs(out_p)))
-        bitwise = bool(torch.equal(out_k, out_k2))
-        acc = torch.zeros_like(out_p)
-        ms = cuda_ms(lambda: segment_sum(values, plan, **kw), reps=20)
-        ms_dev = cuda_ms(lambda: segment_sum(values, plan, **kw), reps=20,
-                         queued=True)
-        enqueue_ms = host_ms(lambda: segment_sum(values, plan, **kw),
-                             reps=20)
-        plain_ms = cuda_ms(lambda: segment_sum_plain(values, plan, **kw),
-                           reps=20)
-        library_ms = cuda_ms(lambda: acc.index_add_(0, plan.ids, values),
-                             reps=20)
-        r, s_ = values.shape[0], plan.num_segments
-        base = kw.get("base") is not None
-        nbytes = (values.numel() + r + s_ + 1
-                  + out_p.numel() * (2 if base else 1)) * 4
-        b_ms, b_by = bound(nbytes, values.numel())
-        seg_len = torch.diff(plan.offsets)
-        rec = dict(phase="segsum", path=path, sum=name, rows=r, segments=s_,
-                   width=values.numel() // r, sum_dtype=kw.get("sum_dtype"),
-                   base=base, longest_segment=int(seg_len.max()),
-                   empty_segments=int((seg_len == 0).sum()),
-                   max_abs_err=err, scale=scale, bitwise=bitwise, ms=ms,
-                   ms_device=ms_dev, host_enqueue_ms=enqueue_ms,
-                   plain_ms=plain_ms,
-                   library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
-                   bytes=nbytes)
-        emit(rec)
-        # One f32 sum per output in another order than index_add_'s
-        # atomics (a long segment adds its chunks' totals): 1e-6 of the
-        # largest sum; a fixed order: the same bits every launch.
-        if not (math.isfinite(err) and err <= 1e-6 * scale and bitwise):
-            raise RuntimeError(f"segment_sum disagrees on {path} {name}: "
-                               f"{rec}")
-        records[name] = rec
-    return records
+    return {name: _segsum_check(path, name, values, plan, kw)
+            for name, (values, plan, kw) in cases}
+
+
+def _segsum_check(path, name, values, plan, kw):
+    """One sum by the kernel against its plain version: max abs error <=
+    1e-6 of the largest sum, two launches bitwise equal; the kernel's time,
+    the plain version's, index_add_'s alone and the bound.  Returns the
+    record."""
+    from super_tpu_torch.kernels.segsum import segment_sum, segment_sum_plain
+
+    values = values.detach()
+    out_k, out_k2 = segment_sum(values, plan, **kw), \
+        segment_sum(values, plan, **kw)
+    out_p = segment_sum_plain(values, plan, **kw)
+    torch.cuda.synchronize()
+    err = float(torch.max(torch.abs(out_k - out_p)))
+    scale = float(torch.max(torch.abs(out_p)))
+    bitwise = bool(torch.equal(out_k, out_k2))
+    acc = torch.zeros_like(out_p)
+    ms = cuda_ms(lambda: segment_sum(values, plan, **kw), reps=20)
+    ms_dev = cuda_ms(lambda: segment_sum(values, plan, **kw), reps=20,
+                     queued=True)
+    enqueue_ms = host_ms(lambda: segment_sum(values, plan, **kw), reps=20)
+    plain_ms = cuda_ms(lambda: segment_sum_plain(values, plan, **kw),
+                       reps=20)
+    library_ms = cuda_ms(lambda: acc.index_add_(0, plan.ids, values),
+                         reps=20)
+    r, s_ = values.shape[0], plan.num_segments
+    base = kw.get("base") is not None
+    nbytes = (values.numel() + r + s_ + 1
+              + out_p.numel() * (2 if base else 1)) * 4
+    b_ms, b_by = bound(nbytes, values.numel())
+    seg_len = torch.diff(plan.offsets)
+    rec = dict(phase="segsum", path=path, sum=name, rows=r, segments=s_,
+               width=values.numel() // r, sum_dtype=kw.get("sum_dtype"),
+               base=base, longest_segment=int(seg_len.max()),
+               empty_segments=int((seg_len == 0).sum()),
+               max_abs_err=err, scale=scale, bitwise=bitwise, ms=ms,
+               ms_device=ms_dev, host_enqueue_ms=enqueue_ms,
+               plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
+               bound_by=b_by, bytes=nbytes)
+    emit(rec)
+    # One f32 sum per output in another order than index_add_'s atomics (a
+    # long segment adds its chunks' totals): 1e-6 of the largest sum; a
+    # fixed order: the same bits every launch.
+    if not (math.isfinite(err) and err <= 1e-6 * scale and bitwise):
+        raise RuntimeError(f"segment_sum disagrees on {path} {name}: {rec}")
+    return rec
 
 
 def phase_repeat(dev, cfg, intr, frames):
@@ -1235,45 +1262,333 @@ def phase_per_iteration(dev, intr, frames):
     return launches, k2
 
 
+def phase_semantic(dev, intr):
+    """The semantic path (the autograd fit, Adam, 10 steps a frame) at
+    480 x 640 on 3 frames with the generator's segmentations: the segment
+    sum SEGSUM_PER_FIT_STEP times a fit step and once at frame 0, no other
+    kernel.  Returns (config, frames, launches)."""
+    from super_tpu_torch.config import workload_config
+
+    cfg = workload_config("semantic")
+    frames = _frames(cfg, intr, PATH_FRAMES + 1, dev)
+    launches = _run_path("semantic", cfg, intr, frames,
+                         {"segment_sum": SEGSUM_PER_FIT_STEP})
+    return cfg, frames, launches
+
+
+def _deform(cfg, dev, seed=None):
+    """The fit's identity deformation (J+1, 7), or 1e-3 off it."""
+    from super_tpu_torch.geometry.quaternion import identity_dq
+
+    d = identity_dq(dev)[None].repeat(cfg.capacity.node_capacity + 1, 1)
+    if seed is not None:
+        gen = torch.Generator(device="cpu").manual_seed(seed)
+        d = d + 1e-3 * torch.randn(d.shape, generator=gen).to(dev)
+    return d
+
+
+def _sides(cfg, intr, frames, dev):
+    """Frame 1's autograd context on the card and on the CPU from the same
+    frame-0 state: {side: (state, intr, context)}."""
+    from super_tpu_torch.core.optimizer import prepare_autograd
+    from super_tpu_torch.core.tracker import init_tracker
+
+    state = init_tracker(cfg, frames[0])
+    out = {}
+    for side, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        st, fr, it = _to(state, d), _to(frames[1], d), _to(intr, d)
+        out[side] = (st, it, prepare_autograd(cfg, st.surfels, st.graph, fr))
+    return out
+
+
+def _total_and_grad(cfg, side, deform):
+    from super_tpu_torch.core.optimizer import autograd_total
+
+    st, it, ctx = side
+    d = deform.detach().to(st.graph.points.device).clone().requires_grad_(
+        True)
+    total, parts = autograd_total(cfg, ctx, st.graph, d, it)
+    total.backward()
+    return (float(total.detach()),
+            {k: float(v.detach()) for k, v in parts.items()}, d.grad.cpu())
+
+
+def _rel(a, b):
+    """max |a - b| over max |b| (tensors on any device)."""
+    a, b = a.detach().cpu(), b.detach().cpu()
+    return float(torch.max(torch.abs(a - b))) / max(
+        float(torch.max(torch.abs(b))), 1e-30)
+
+
+def _surfel_faces(cfg, side, warped):
+    """The faces that read the warped surfels, on given warped points."""
+    from super_tpu_torch.core import semantic as sem
+    from super_tpu_torch.core.optimizer import point_plane_autograd
+
+    st, it, ctx = side
+    los = cfg.losses
+    return (los.sf_point_plane_weight * point_plane_autograd(
+        cfg, ctx, None, it, warped=warped)
+        + los.sf_bn_morph_weight * sem.bn_morph_loss(
+            cfg, ctx.extras, warped, ctx.sf_seg, ctx.base.sf_mask, it))
+
+
+@contextlib.contextmanager
+def _grad_nudged(scale):
+    """Every entry of every gradient of the fit moved by (scale - 1) s
+    times the gradient's largest entry, with s a seeded +-1 pattern over
+    the deformation's entries: the size of a change of sum order (the
+    card's and the CPU's gradients differ by ~1e-7 of the largest entry),
+    entry by entry.  Near-zero entries change sign, as they do between sum
+    orders; a relative nudge would not (Adam's first step is the sign of
+    each entry, and it divides out a common scale).  Exact zeros (the
+    inactive nodes' rows) stay zero."""
+    from super_tpu_torch.core import optimizer
+
+    real = optimizer.autograd_total
+
+    def nudged(cfg, ctx, graph, deform, intr):
+        gen = torch.Generator(device="cpu").manual_seed(SEED)
+        sign = (torch.randint(0, 2, deform.shape, generator=gen) * 2
+                - 1).to(deform.device, torch.float32)
+        d = deform * 1.0
+        # Entries that are exactly 0 (inactive nodes) stay 0, as they do
+        # in every sum order.
+        d.register_hook(lambda g: g + torch.where(
+            g != 0, (scale - 1.0) * sign * torch.max(torch.abs(g)), 0.0))
+        return real(cfg, ctx, graph, d, intr)
+
+    optimizer.autograd_total = nudged
+    try:
+        yield
+    finally:
+        optimizer.autograd_total = real
+
+
+def phase_semantic_reference(dev, cfg, intr, frames):
+    """Frame 1 of the semantic path, card against the CPU path from the
+    same inputs (the CPU tests hold the CPU path to the JAX package).
+
+    At a seeded deformation 1e-3 off the identity: the total within 1e-5,
+    the gradient within 1e-4 of its largest entry.  At the identity the
+    surfels, frame-0 pixels, project onto pixel centres within an f32
+    rounding, so a warped point an ULP apart samples another cell: there
+    the surfel faces and their gradient are held on the CPU's warped
+    points, and the warp's backward pass on a shared cotangent, each at
+    the same tolerances; end to end too where the two warps agree bit for
+    bit.  The 10-step fit is chaotic at rounding (Adam's first step is a
+    sign): the card's deformation must lie within twice the largest change
+    that gradient nudges of +-2e-7 of the largest entry make
+    (:func:`_grad_nudged`, NUDGES, on the card, and +2e-7 on the CPU), its
+    loss within the largest loss change."""
+    from super_tpu_torch.core.optimizer import _warp_all, graph_fit
+
+    sides = _sides(cfg, intr, frames, dev)
+    rec, ok = {}, True
+    for name, seed in (("perturbed", SEED), ("identity", None)):
+        d = _deform(cfg, dev, seed)
+        (tc, pc, gc), (th, ph, gh) = (_total_and_grad(cfg, sides[s], d)
+                                      for s in ("card", "cpu"))
+        r = dict(total=tc, total_rel_err=abs(tc - th) / th, parts=pc,
+                 grad_rel_err=_rel(gc, gh), grad_max=float(gh.abs().max()))
+        if name == "identity":
+            (sc, ic, cc), (sh, ih, ch) = sides["card"], sides["cpu"]
+            dc = d.detach().clone().requires_grad_(True)
+            dh = d.detach().cpu().clone().requires_grad_(True)
+            wc, wh = _warp_all(cfg, cc, dc), _warp_all(cfg, ch, dh)
+            cot = torch.randn(wh.shape, generator=torch.Generator(
+                device="cpu").manual_seed(SEED))
+            torch.sum(wc * cot.to(dev)).backward()
+            torch.sum(wh * cot).backward()
+            r["warp_coords_apart"] = int((wc.detach().cpu() != wh).sum())
+            r["warp_vjp_rel_err"] = _rel(dc.grad, dh.grad)
+            on_c = wh.detach().to(dev).requires_grad_(True)
+            on_h = wh.detach().clone().requires_grad_(True)
+            fc, fh = (_surfel_faces(cfg, sides[s], w)
+                      for s, w in (("card", on_c), ("cpu", on_h)))
+            fc.backward()
+            fh.backward()
+            fc, fh = float(fc.detach()), float(fh.detach())
+            r["faces_rel_err"] = abs(fc - fh) / fh
+            r["faces_grad_rel_err"] = _rel(on_c.grad, on_h.grad)
+            ok &= (r["warp_vjp_rel_err"] <= 1e-4
+                   and r["faces_rel_err"] <= 1e-5
+                   and r["faces_grad_rel_err"] <= 1e-4)
+            end_to_end = r["warp_coords_apart"] == 0
+        else:
+            end_to_end = True
+        if end_to_end:
+            ok &= r["total_rel_err"] <= 1e-5 and r["grad_rel_err"] <= 1e-4
+        rec[name] = r
+
+    def fit(side, scale=None):
+        st, it, _ = sides[side]
+        fr = _to(frames[1], st.graph.points.device)
+        with _grad_nudged(scale) if scale else contextlib.nullcontext():
+            d, loss = graph_fit(cfg, st.surfels, st.graph, fr, it)
+        return d.cpu(), float(loss)
+
+    d_c, l_c = fit("card")
+    t0 = time.perf_counter()
+    d_h, l_h = fit("cpu")
+    cpu_s = time.perf_counter() - t0
+    nudged = []
+    for side, scale, (d_ref, l_ref) in (
+            ("card", NUDGES[0], (d_c, l_c)), ("card", NUDGES[1], (d_c, l_c)),
+            ("cpu", NUDGES[0], (d_h, l_h))):
+        d_n, l_n = fit(side, scale)
+        nudged.append(dict(device=side, scale=scale,
+                           deform_max_abs_diff=float(
+                               torch.max(torch.abs(d_n - d_ref))),
+                           loss_diff=abs(l_n - l_ref)))
+    d_spread = max(n["deform_max_abs_diff"] for n in nudged)
+    l_spread = max(n["loss_diff"] for n in nudged)
+    d_err = float(torch.max(torch.abs(d_c - d_h)))
+    emit(dict(phase="semantic_reference", frame1=rec, fit_loss=l_c,
+              fit_cpu_loss=l_h, fit_deform_max_abs_err=d_err,
+              fit_loss_diff=abs(l_c - l_h), fit_cpu_s=cpu_s, nudged=nudged,
+              deform_limit=2 * d_spread, loss_limit=l_spread))
+    if not (ok and math.isfinite(l_c) and d_err <= 2 * d_spread
+            and abs(l_c - l_h) <= l_spread):
+        raise RuntimeError(f"semantic frame 1 disagrees with the CPU path: "
+                           f"{rec}, fit {d_err} / {2 * d_spread}, loss "
+                           f"{abs(l_c - l_h)} / {l_spread}")
+
+
+def phase_segsum_semantic(dev, intr, frames):
+    """The segment sum against its plain version on the semantic path's
+    own sums: frame 1's backward pass at a seeded deformation (the
+    G-blocks' anchor rows, 65,536 x 7 into the 384 nodes, and the
+    triangle corners), and the soft splat's pixel sums of the render loss
+    (4 Np x 4 into H W + 1 pixels, planned at that call).  Returns the
+    anchor rows' record."""
+    from super_tpu_torch.config import workload_config
+    from super_tpu_torch.core.optimizer import _warp_all, autograd_total
+    from super_tpu_torch.kernels import segsum
+    from super_tpu_torch.render import splat
+
+    cfg = workload_config("semantic")
+    (st, it, ctx) = _sides(cfg, intr, frames, dev)["card"]
+    calls = []
+    real = segsum.segment_sum
+
+    def spy(values, plan, **kw):
+        calls.append((values.detach(), plan, kw))
+        return real(values, plan, **kw)
+
+    # The kernel's body counts on its module name: these comparison
+    # launches count on the spy, not on the path's counter.
+    spy.launches = 0
+    segsum.segment_sum = spy
+    try:
+        d = _deform(cfg, dev, SEED).requires_grad_(True)
+        autograd_total(cfg, ctx, st.graph, d, it)[0].backward()
+        names = {id(ctx.block_plan): "anchor_rows",
+                 id(ctx.tri_plan): "triangle_corners"}
+        sums = [(names[id(p)], v, p, kw) for v, p, kw in calls]
+        calls.clear()
+        with torch.no_grad():
+            warped = _warp_all(cfg, ctx, d)
+            splat.render_soft(warped, ctx.sf_colors, ctx.base.sf_mask, it,
+                              cfg.height, cfg.width)
+        sums.append(("splat_pixels",) + calls[0])
+    finally:
+        segsum.segment_sum = real
+    recs = {name: _segsum_check("semantic", name, v, p, kw)
+            for name, v, p, kw in sums}
+    return recs["anchor_rows"]
+
+
+def phase_repeat_semantic(dev, cfg, intr, frames):
+    """Two 3-frame semantic tracks from the same frames: bitwise equal
+    surfels, graph and fit loss per frame."""
+    from super_tpu_torch.core.tracker import init_tracker, track_step
+
+    def track():
+        state = init_tracker(cfg, frames[0])
+        losses = []
+        for f in frames[1:]:
+            state, outs = track_step(cfg, intr, state, f)
+            losses.append(outs.lm_cost)
+        return state, torch.stack(losses)
+
+    (s1, l1), (s2, l2) = track(), track()
+    torch.cuda.synchronize()
+    same = dict(surfels=_same(s1.surfels, s2.surfels),
+                graph=_same(s1.graph, s2.graph), loss=_same(l1, l2))
+    emit(dict(phase="repeat_semantic", frames=len(frames), bitwise=same,
+              loss=l1.tolist()))
+    if not all(same.values()):
+        raise RuntimeError(f"the semantic path does not repeat: {same}")
+
+
 # The JAX README's accuracy table (480 x 640, 30 synthetic frames, 20
 # points), recorded by the JAX package: a reference beside the port's
 # numbers, not a gate.
 JAX_README_PX = {"lm": 0.37, "per_iteration": 2.92,
-                 "per_iteration_frozen": 0.57}
+                 "per_iteration_frozen": 0.57, "semantic": 15.4}
 
 
-def _pipeline_run(name, cfg, seq, dev, intr, seed=SEED, scale=None):
+def _pipeline_run(name, cfg, seq, dev, intr, seed=SEED, scale=None,
+                  limit=0.75):
     """SuPerPipeline over ``seq``'s PIPELINE_FRAMES frames with its GT
-    points (every tuple Gram scaled by ``scale`` where given): the
-    summary's record, and whether it tracks (a finite mean reprojection
-    error below 0.75 of the static error of the same GT, no tracking at
-    all, with more than 60% of the point-frames valid:
-    tests/test_pipeline.py's criterion)."""
+    points (and its segmentations on the semantic method; every tuple Gram
+    scaled by ``scale`` where given): the summary's record, and whether it
+    tracks (a finite mean reprojection error below ``limit`` times the
+    static error of the same GT, no tracking at all, with more than 60% of
+    the point-frames valid: tests/test_pipeline.py's criterion at 0.75,
+    tests/test_semantic.py's at 1)."""
     from super_tpu_torch.pipeline import SuPerPipeline
 
     n = PIPELINE_FRAMES
     gt = seq.gt_xy[:n]
     static = float(np.mean([np.linalg.norm(gt[t] - gt[0], axis=1).mean()
                             for t in range(1, n)]))
+    segs = {}
+    if cfg.method == "semantic-super":
+        segs = dict(segs=seq.segs[:n], seg_confs=seq.seg_confs[:n])
     t0 = time.perf_counter()
     with _gram_scaled(scale) if scale else contextlib.nullcontext():
         m = SuPerPipeline(cfg, intr, device=dev).run(
             seq.depths[:n], seq.colors[:n], gt_xy=gt,
-            gt_valid=seq.gt_valid[:n])
+            gt_valid=seq.gt_valid[:n], **segs)
+    tracks = (math.isfinite(m["reproj_mean"]) and m["frac_valid"] > 0.6
+              and m["reproj_mean"] < limit * static)
+    sol = cfg.solver
     rec = dict(phase="pipeline", run=name, seed=seed, gram_scale=scale,
-               frames=n, association=cfg.solver.association,
-               linear_solver=cfg.solver.linear_solver,
+               frames=n, association=sol.association,
+               linear_solver=(sol.linear_solver if sol.use_derived_gradient
+                              else f"autograd {sol.optimizer}"),
                reproj_mean=m["reproj_mean"], reproj_std=m["reproj_std"],
                frac_valid=m["frac_valid"], p50_frame_ms=m["p50_frame_ms"],
                mean_frame_ms=m["mean_frame_ms"],
                num_surfels=m["num_surfels"], num_nodes=m["num_nodes"],
                overflow={k: v for k, v in m.items()
                          if k.startswith("overflow_")},
-               static_error=static, jax_readme_px=JAX_README_PX.get(name),
+               static_error=static, limit=limit, tracks=tracks,
+               jax_readme_px=JAX_README_PX.get(name),
                seconds=time.perf_counter() - t0)
     emit(rec)
-    return rec, (math.isfinite(m["reproj_mean"]) and m["frac_valid"] > 0.6
-                 and m["reproj_mean"] < 0.75 * static)
+    return rec, tracks
+
+
+def _semantic_runs():
+    """The semantic configurations of the pipeline phase at 480 x 640, with
+    the semantic workload's capacities: (name, config, gated)."""
+    from super_tpu_torch.config import semantic_super_config, \
+        workload_config
+
+    bench = workload_config("semantic")
+    # tests/test_semantic.py's configuration: the bench's with the render
+    # loss, on superv2 data.
+    render = bench.replace(data="superv2", losses=dataclasses.replace(
+        bench.losses, render_loss=True))
+    ssc = semantic_super_config(
+        num_classes=SEMANTIC_CLASSES, load_seg=True, height=bench.height,
+        width=bench.width, mesh_step_size=bench.mesh_step_size,
+        capacity=bench.capacity)
+    return [("semantic", bench, True), ("semantic_render", render, False),
+            ("semantic_super_config", ssc, False)]
 
 
 def phase_pipeline(dev, intr, sequences):
@@ -1285,7 +1600,9 @@ def phase_pipeline(dev, intr, sequences):
     every tuple Gram nudged (:data:`NUDGES`), and the headline and the
     per-iteration path on the other draws of the GT points
     (``sequences``: {seed: future of the sequence}); each must track
-    too."""
+    too.  Last the semantic configurations (:func:`_semantic_runs`): the
+    bench's must track by tests/test_semantic.py's criterion, the other
+    two are recorded beside it."""
     from super_tpu_torch.config import workload_config
 
     lm = workload_config("lm")
@@ -1309,6 +1626,13 @@ def phase_pipeline(dev, intr, sequences):
         results.append(rec)
         if not ok:
             bad.append((name, seed, scale))
+    for name, cfg, gated in _semantic_runs():
+        rec, ok = _pipeline_run(name, cfg, _sequence(lm, intr,
+                                                     PIPELINE_FRAMES),
+                                dev, intr, limit=1.0)
+        results.append(rec)
+        if gated and not ok:
+            bad.append((name, SEED, None))
     spread = {}
     for name in ("lm", "per_iteration"):
         px = [r["reproj_mean"] for r in results if r["run"] == name]
@@ -1380,17 +1704,28 @@ def main() -> int:
     del state, ctx, assoc
     solver_launches = phase_solvers(dev, intr, frames)
     phase_dense_path(dev, intr, frames)
+    sem_cfg, sem_frames, sem_launches = phase_semantic(dev, intr)
+    segsum_sem = phase_segsum_semantic(dev, intr, sem_frames)
+    phase_repeat_semantic(dev, sem_cfg, intr, sem_frames)
     # The timed phases are done: the workers' CPU load costs only the
     # CPU reference solves time from here on.
     pool, sequences = _start_sequences(intr, PIPELINE_SEEDS)
     try:
         phase_path_reference(intr, frames)
         per_it_launches, k2_per_it = phase_per_iteration(dev, intr, frames)
+        phase_semantic_reference(dev, sem_cfg, intr, sem_frames)
         phase_pipeline(dev, intr, sequences)
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
     phase_bench(dev)
 
+    # The segment sum on this slice's path, the semantic fit (its anchor
+    # rows' sum timed), with its launches and time on the headline beside.
+    segsum_entry = _kernel_entry(
+        "segment_sum", "super_tpu_torch/csrc/segment_sum.cu", None,
+        sem_launches["segment_sum"], segsum_sem)
+    segsum_entry.update(launches_lm=launches["segment_sum"],
+                        lm_pair_rows_ms=segsum["ms"])
     emit({"kernels": [
         _kernel_entry("pairs_cg", "super_tpu_torch/csrc/pairs_cg.cu",
                       "super_tpu/pallas_kernels/pcg.py:92",
@@ -1408,8 +1743,7 @@ def main() -> int:
         _kernel_entry("dense_cg", "super_tpu_torch/csrc/dense_cg.cu",
                       "super_tpu/pallas_kernels/pcg.py:32",
                       solver_launches["dense_cg"], k3),
-        _kernel_entry("segment_sum", "super_tpu_torch/csrc/segment_sum.cu",
-                      None, launches["segment_sum"], segsum),
+        segsum_entry,
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -5,14 +5,18 @@ line.
                                     [--height 480 --width 640
                                      --mesh_step_size 30]
 
-The workloads of the JAX package's bench (bench.py, ``build_workload``,
-non-semantic branch) as the port runs them (config.lm_workload_config):
-the headline with the per-frame association (``value``), the same with
-the per-iteration (moving-target) association (``per_iteration_hz``) and
-the dense ED graph, mesh step 16 (``dense_mesh16_hz``, unless
-``--no_dense``).  Each alternates synthetic frames 1 and 2: ``reps``
-frames from the frame-0 state converge the map (warm-up), then ``reps``
-more are timed.  The port has no device-resident frame loop yet, so the
+The workloads of the JAX package's bench (bench.py, ``build_workload``)
+as the port runs them (config.lm_workload_config,
+config.semantic_workload_config): the headline with the per-frame
+association (``value``), the same with the per-iteration (moving-target)
+association (``per_iteration_hz``), the dense ED graph, mesh step 16
+(``dense_mesh16_hz``, unless ``--no_dense``), and the autograd
+Semantic-SuPer fit with the generator's two-class segmentations
+(``semantic_hz``).  Each alternates synthetic frames 1 and 2: ``n``
+frames from the frame-0 state converge the map (warm-up), then ``n``
+more are timed, with ``n`` the root bench's: ``reps``, ``max(6, reps //
+5)`` for the dense graph and ``max(6, reps // 3)`` for the semantic fit,
+never more than ``reps``.  The port has no device-resident frame loop yet, so the
 loop runs on the host with one synchronisation at the end (``"loop":
 "host"``).  The overflow counters' maxima over the timed frames ride along
 (``overflow``), so that a run which drops residuals cannot pass for a
@@ -32,7 +36,7 @@ import numpy as np
 import torch
 
 METRIC = "tracked frames/s per chip (full step: 10-iter LM + fusion)"
-NOT_PORTED = ("semantic_error", "perception_error", "e2e_depth_error")
+NOT_PORTED = ("perception_error", "e2e_depth_error")
 OVERFLOW = (("tuple", "tuple_overflow"), ("pair", "pair_overflow"),
             ("add_deferred", "add_overflow"), ("free", "free_exhausted"))
 
@@ -46,10 +50,15 @@ def measure_step(cfg, reps: int, device, seed: int = 0):
 
     h, w = cfg.height, cfg.width
     intr = default_intrinsics(h, w, device=device)
-    seq = generate(3, h, w, intr=intr, seed=seed)
+    semantic = cfg.method == "semantic-super"
+    seq = generate(3, h, w, intr=intr, seed=seed,
+                   num_classes=cfg.num_classes if semantic else 0)
     colors = np.ascontiguousarray(seq.colors.transpose(0, 3, 1, 2))
-    frames = [preprocess_frame(cfg, intr, seq.depths[t], colors[t], float(t),
-                               device=device) for t in range(3)]
+    frames = [preprocess_frame(
+        cfg, intr, seq.depths[t], colors[t], float(t),
+        seg=seq.segs[t] if semantic else None,
+        seg_conf=seq.seg_confs[t] if semantic else None, device=device)
+        for t in range(3)]
 
     def sync():
         if torch.device(device).type == "cuda":
@@ -77,7 +86,8 @@ def measure_step(cfg, reps: int, device, seed: int = 0):
 def measure(reps: int = 30, device="cuda", height: int = 480,
             width: int = 640, mesh_step: int = 30, dense: bool = True):
     """The JSON line's fields."""
-    from super_tpu_torch.config import lm_workload_config
+    from super_tpu_torch.config import lm_workload_config, \
+        semantic_workload_config
 
     cfg = lm_workload_config(height, width, mesh_step)
     hz, overflow = measure_step(cfg, reps, device)
@@ -96,6 +106,12 @@ def measure(reps: int = 30, device="cuda", height: int = 480,
             min(reps, max(6, reps // 5)), device)
         out["dense_mesh16_hz"] = round(hz_d, 3)
         out["dense_overflow"] = overflow_d
+    # The root bench's max(6, reps // 3) frames, never more than reps.
+    hz_s, overflow_s = measure_step(
+        semantic_workload_config(height, width, mesh_step),
+        min(reps, max(6, reps // 3)), device)
+    out["semantic_hz"] = round(hz_s, 3)
+    out["semantic_overflow"] = overflow_s
     for key in NOT_PORTED:
         out[key] = "NotImplementedError"
     if torch.device(device).type == "cuda":

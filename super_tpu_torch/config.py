@@ -47,8 +47,10 @@ class SolverConfig:
     ``"per_iteration"`` or ``"per_iteration_frozen"``,
     ``lm_hypotheses=1``, the tuple assembly with the pair expansion, either
     ``lm_schedule``, and the ``pairs_fused``, ``cholesky``, ``pcg`` and
-    ``pcg_pallas`` solvers; the other values of these fields belong to
-    later slices and raise where they would be taken.
+    ``pcg_pallas`` solvers, and the autograd path
+    (``use_derived_gradient=False``) with ``optimizer`` ``"SGD"`` or
+    ``"Adam"``; the other values of these fields belong to later slices and
+    raise where they would be taken.
     """
 
     use_derived_gradient: bool = True
@@ -198,10 +200,51 @@ def lm_workload_config(height: int = 480, width: int = 640,
         solver=SolverConfig(**solver))
 
 
-# The named paths of the LM tracking step at 480 x 640 that chip_smoke.py
-# and profile_step.py drive.
+def semantic_super_config(**overrides) -> SuPerConfig:
+    """Semantic-SuPer defaults: the autograd path with SGD, soft-seg ICP,
+    face, rotation, boundary-morph and render losses (the JAX package's
+    ``semantic_super_config``)."""
+    base = SuPerConfig(
+        method="semantic-super", data="superv2",
+        losses=LossConfig(sf_point_plane=False, sf_soft_seg_point_plane=True,
+                          mesh_arap=False, mesh_face=True, sf_bn_morph=True,
+                          render_loss=True),
+        solver=SolverConfig(use_derived_gradient=False, optimizer="SGD"))
+    return dataclasses.replace(base, **overrides)
+
+
+def semantic_workload_config(height: int = 480, width: int = 640,
+                             mesh_step: int = 30) -> SuPerConfig:
+    """The semantic workload of the JAX package's bench (bench.py,
+    ``build_workload(..., semantic=True)``, the defaults of
+    run_semantic_super.py): the autograd fit with Adam at lr 2e-4 for 10
+    iterations on soft-seg ICP, face, rotation and boundary-morph losses
+    (no render), two classes, given segmentations; the capacities of the
+    LM workload without its extra chunk (393,216 surfel slots at 480 x 640,
+    352 anchors in 384) and every other solver field at its default."""
+    nodes = len(range(0, width - 1, mesh_step)) * \
+        len(range(0, height - 1, mesh_step))
+    node_cap = max(64, -(-nodes // 64) * 64)
+    chunk = 32768
+    surfel_cap = -(-int(1.25 * height * width) // chunk) * chunk
+    return SuPerConfig(
+        method="semantic-super", num_classes=2, load_seg=True,
+        height=height, width=width, mesh_step_size=mesh_step,
+        losses=LossConfig(sf_point_plane=False, sf_soft_seg_point_plane=True,
+                          mesh_arap=False, mesh_rot=True, mesh_face=True,
+                          sf_bn_morph=True),
+        solver=SolverConfig(use_derived_gradient=False, optimizer="Adam",
+                            learning_rate=2e-4),
+        capacity=CapacityConfig(
+            surfel_capacity=surfel_cap, node_capacity=node_cap,
+            edge_capacity=4 * node_cap, triangle_capacity=2 * node_cap,
+            new_surfel_capacity=8192))
+
+
+# The named paths of the tracking step at 480 x 640 that chip_smoke.py and
+# profile_step.py drive.
 WORKLOADS = ("lm", "dense16", "pcg_pallas", "cholesky", "pcg",
-             "per_iteration")
+             "per_iteration", "semantic")
 
 
 def workload_config(name: str) -> SuPerConfig:
@@ -209,9 +252,13 @@ def workload_config(name: str) -> SuPerConfig:
     pair-sparse CG by K1); ``dense16``, the dense ED graph (mesh step 16,
     K1b); ``pcg_pallas`` (K3), ``cholesky`` and ``pcg``, the headline with
     that dense-matrix solver; ``per_iteration``, the headline with the
-    moving-target association (the JAX bench's ``per_iteration_hz``)."""
+    moving-target association (the JAX bench's ``per_iteration_hz``);
+    ``semantic``, the autograd Semantic-SuPer fit (the JAX bench's
+    ``semantic_hz``)."""
     if name not in WORKLOADS:
         raise ValueError(f"unknown workload {name!r}; one of {WORKLOADS}")
+    if name == "semantic":
+        return semantic_workload_config(480, 640)
     cfg = lm_workload_config(480, 640, 16 if name == "dense16" else 30)
     if name == "per_iteration":
         cfg = cfg.replace(solver=dataclasses.replace(

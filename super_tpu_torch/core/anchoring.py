@@ -2,9 +2,9 @@
 super_tpu/core/anchoring.py).
 
 Weights are ``softmax(exp(-d / r))`` over the finite-distance neighbours;
-surfels farther than every anchor's radius are de-stabilised.  The port
-covers the geometric weights of the "super" method; the semantic JSD blend
-comes with the semantic slice.
+surfels farther than every anchor's radius are de-stabilised.  The
+"semantic-super" method (soft segmentation) blends in the class agreement
+of surfel and node: ``softmax(exp(-JSD)^0.5 exp(-d / r)^0.5)``.
 """
 
 from __future__ import annotations
@@ -16,6 +16,8 @@ import torch
 from super_tpu_torch.config import SuPerConfig
 from super_tpu_torch.core.state import GraphState, SurfelState
 from super_tpu_torch.ops.knn import masked_knn, self_knn
+
+_JSD_EPS = 1e-13  # the reference's epsilon convention (geometry/divergence)
 
 
 def _stable_softmax0(z):
@@ -31,6 +33,32 @@ def _softmax_exp_neg0(scores, finite_mask):
     """softmax(exp(-scores)) over axis 0, restricted to finite entries."""
     z = torch.where(finite_mask, torch.exp(-scores), float("-inf"))
     return _stable_softmax0(z)
+
+
+def _jsd_channelwise(graph_conf_t, idx, q_conf, ps=None):
+    """JSD (K, N) between the anchor nodes' class confidences (graph_conf_t
+    (C, J) gathered at idx (K, N), or ``ps`` (C, K, N) given) and the
+    points' q_conf (C, N)."""
+    if ps is None:
+        ps = graph_conf_t[:, idx.long()]
+    kl_pm = kl_qm = 0.0
+    for ch in range(graph_conf_t.shape[0]):
+        p = ps[ch]
+        q = q_conf[ch][None, :]
+        m = 0.5 * (p + q)
+        kl_pm = kl_pm + p * torch.log(p / (m + _JSD_EPS) + _JSD_EPS)
+        kl_qm = kl_qm + q * torch.log(q / (m + _JSD_EPS) + _JSD_EPS)
+    return 0.5 * (kl_pm + kl_qm)
+
+
+def _anchor_weights(cfg, graph, idx, dists, radii, finite, seg_conf,
+                    conf_ps=None):
+    nd = dists / torch.clamp(radii, min=1e-12)
+    if cfg.method == "semantic-super" and not cfg.hard_seg and \
+            seg_conf is not None:
+        div = _jsd_channelwise(graph.seg_conf.T, idx, seg_conf, ps=conf_ps)
+        return _softmax_exp_neg0(0.5 * div + 0.5 * nd, finite)
+    return _softmax_exp_neg0(nd, finite)
 
 
 def update_graph_knn(cfg: SuPerConfig, graph: GraphState) -> GraphState:
@@ -76,10 +104,13 @@ def _sort_anchors_by_id(idx, dists):
 
 
 def anchor_points(cfg: SuPerConfig, graph: GraphState, points, mask,
-                  seg=None) -> Tuple[torch.Tensor, torch.Tensor,
-                                     torch.Tensor]:
+                  seg=None, seg_conf=None) -> Tuple[torch.Tensor,
+                                                    torch.Tensor,
+                                                    torch.Tensor]:
     """K nearest ED nodes per point (ascending node id), blend weights and
-    the stability mask: (knn_idx (K, N), knn_w (K, N), stable (N,))."""
+    the stability mask: (knn_idx (K, N), knn_w (K, N), stable (N,)).
+    ``seg`` (N,) gates the KNN with ``hard_seg``; ``seg_conf`` (C, N) takes
+    part in the semantic weights."""
     k = cfg.num_neighbors
     dists, idx = masked_knn(
         points, graph.points.T, k, query_mask=mask, ref_mask=graph.active,
@@ -89,18 +120,22 @@ def anchor_points(cfg: SuPerConfig, graph: GraphState, points, mask,
     radii = graph.radii[idx.long()]
     finite = torch.isfinite(dists)
     stable = mask & torch.any(finite & (dists <= radii), dim=0)
-    nd = dists / torch.clamp(radii, min=1e-12)
-    return idx, _softmax_exp_neg0(nd, finite), stable
+    return idx, _anchor_weights(cfg, graph, idx, dists, radii, finite,
+                                seg_conf), stable
 
 
 def recompute_surfel_weights(cfg: SuPerConfig, surfels: SurfelState,
                              graph: GraphState) -> SurfelState:
     """Refresh knn_w from the current positions, keeping anchor ids."""
     idx = surfels.knn_idx.long()                           # (K, N)
-    bank = torch.cat([graph.points.T, graph.radii[None]], dim=0)  # (4, J)
-    g = bank[:, idx]                                       # (4, K, N)
+    rows = [graph.points.T, graph.radii[None]]             # (4, J)
+    semantic = cfg.method == "semantic-super" and not cfg.hard_seg
+    if semantic:
+        rows.append(graph.seg_conf.T)                      # + (C, J)
+    g = torch.cat(rows, dim=0)[:, idx]                     # (F, K, N)
     diff = surfels.points[:, None, :] - g[:3]
     dists = torch.sqrt(torch.sum(diff * diff, dim=0))
-    nd = dists / torch.clamp(g[3], min=1e-12)
-    w = _softmax_exp_neg0(nd, torch.ones_like(dists, dtype=torch.bool))
+    w = _anchor_weights(cfg, graph, idx, dists, g[3],
+                        torch.ones_like(dists, dtype=torch.bool),
+                        surfels.seg_conf, conf_ps=g[4:] if semantic else None)
     return surfels._replace(knn_w=w)

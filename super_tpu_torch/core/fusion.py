@@ -1,5 +1,7 @@
 """Surfel fusion: merge a frame's observations into the fixed-capacity map
 (counterpart of super_tpu/core/fusion.py, ``proj_map_mode="sort"``).
+With ``method="semantic-super"`` the merges also blend the class
+confidences, renormalise them and take the class as their argmax.
 
 1. Projection order: active surfels sorted by (pixel, confidence descending,
    slot id); a surfel's layer is its position in its pixel's run, and
@@ -75,22 +77,25 @@ def _proj_sort_products(p: int, confs, valid, coords):
     return sorted_coords, iota - first_idx, order
 
 
-def _pack_bank(points, norms, colors, radii, confs, seg, time_stamp):
-    """The merge-relevant fields as one (13, N) bank (outside semantic mode
-    the merges never touch class confidences, so none ride along)."""
+def _pack_bank(points, norms, colors, radii, confs, seg, time_stamp,
+               seg_conf):
+    """The merge-relevant fields as one (13 + C, N) bank; ``seg_conf`` has
+    no rows (C = 0) outside semantic mode, where the merges never touch
+    class confidences."""
     return torch.cat([points, norms, colors, radii[None], confs[None],
-                      seg.to(points.dtype)[None], time_stamp[None]], dim=0)
+                      seg.to(points.dtype)[None], time_stamp[None],
+                      seg_conf], dim=0)
 
 
 def _unpack_bank(bank) -> Dict:
     return dict(points=bank[0:3], norms=bank[3:6], colors=bank[6:9],
                 radii=bank[9], confs=bank[10], seg=bank[11].to(torch.int32),
-                time_stamp=bank[12])
+                time_stamp=bank[12], seg_conf=bank[13:])
 
 
 def _pack_vals(v: Dict):
     return _pack_bank(v["points"], v["norms"], v["colors"], v["radii"],
-                      v["confs"], v["seg"], v["time_stamp"])
+                      v["confs"], v["seg"], v["time_stamp"], v["seg_conf"])
 
 
 def _merge_gate(cfg: SuPerConfig, a: Dict, b: Dict):
@@ -103,7 +108,8 @@ def _merge_gate(cfg: SuPerConfig, a: Dict, b: Dict):
     return ok
 
 
-def _merged_values(a: Dict, b: Dict, time, triple_new_color: bool) -> Dict:
+def _merged_values(cfg: SuPerConfig, a: Dict, b: Dict, time,
+                   triple_new_color: bool) -> Dict:
     """Confidence-weighted merge of b into a."""
     w1, w2 = a["confs"], b["confs"]
     w_sum = w1 + w2
@@ -120,26 +126,38 @@ def _merged_values(a: Dict, b: Dict, time, triple_new_color: bool) -> Dict:
         colors = wc1 / cs * a["colors"] + wc2 / cs * b["colors"]
     else:
         colors = a1 * a["colors"] + a2 * b["colors"]
-    return dict(points=points, norms=norms, radii=radii, colors=colors,
-                confs=w_sum, time_stamp=torch.zeros_like(w_sum) + time,
-                seg=a["seg"])
+    out = dict(points=points, norms=norms, radii=radii, colors=colors,
+               confs=w_sum, time_stamp=torch.zeros_like(w_sum) + time)
+    if cfg.method == "semantic-super":
+        sc = a1 * a["seg_conf"] + a2 * b["seg_conf"]
+        sc = sc / torch.clamp(torch.sum(sc, dim=0, keepdim=True), min=1e-20)
+        out["seg_conf"] = sc
+        out["seg"] = torch.argmax(sc, dim=0).to(torch.int32)
+    else:
+        out["seg_conf"] = a["seg_conf"]
+        out["seg"] = a["seg"]
+    return out
 
 
 def _candidate_view(cfg: SuPerConfig, intr: Intrinsics, frame: FrameData,
                     sf_pix) -> Dict:
-    """The frame candidate at each surfel's pixel: z, normal and colour are
+    """The frame candidate at each surfel's pixel: z, normal and colour
+    (and the class and class confidences where the mode reads them) are
     gathered, the rest is rebuilt from the pixel as preprocess_frame builds
     it (invalid candidates carry zero normals, so they fail the gate)."""
     h, w = cfg.height, cfg.width
     fdt = frame.points.dtype
     need_seg = cfg.hard_seg or cfg.data == "superv1"
+    nseg = frame.seg_conf.shape[0] if cfg.method == "semantic-super" else 0
     rows = [frame.points[2:3], frame.norms, frame.colors]
     if need_seg:
         rows.append(frame.seg.to(fdt)[None])
+    rows.append(frame.seg_conf[:nseg])
     fv = torch.cat(rows, dim=0)[:, sf_pix.long()]
     z, n, colors = fv[0], fv[1:4], fv[4:7]
     seg = fv[7].to(torch.int32) if need_seg else \
         torch.zeros(z.shape, dtype=torch.int32, device=z.device)
+    seg_conf = fv[7 + int(need_seg):]
     pix = sf_pix.long()
     vf = (pix // w).to(fdt)
     uf = (pix - (pix // w) * w).to(fdt)
@@ -153,7 +171,7 @@ def _candidate_view(cfg: SuPerConfig, intr: Intrinsics, frame: FrameData,
     confs = torch.exp(-dc2 * DIVTERM)
     return dict(points=torch.stack([x, y, z]), norms=n, colors=colors,
                 radii=radii, confs=confs, seg=seg,
-                time_stamp=torch.zeros_like(z))
+                time_stamp=torch.zeros_like(z), seg_conf=seg_conf)
 
 
 def add_candidates(cfg: SuPerConfig, intr: Intrinsics, surfels: SurfelState,
@@ -180,7 +198,8 @@ def add_candidates(cfg: SuPerConfig, intr: Intrinsics, surfels: SurfelState,
                        frame.seg_conf], dim=0)
     cvals = fbank[:, comp_src]                      # (13 + C, a_cap)
     knn_idx, knn_w, stable = anchor_points(
-        cfg, graph, cvals[0:3], comp_valid, seg=cvals[12].to(torch.int32))
+        cfg, graph, cvals[0:3], comp_valid, seg=cvals[12].to(torch.int32),
+        seg_conf=cvals[13:])
     add = comp_valid & stable
 
     n = surfels.capacity
@@ -278,7 +297,7 @@ def _stage23(cfg: SuPerConfig, bank, active0, sorted_coords, layer, order,
         for i in range(depth_l):
             for j in range(i + 1, depth_l):
                 do = alive[i] & alive[j] & _merge_gate(cfg, vals[i], vals[j])
-                mv = _merged_values(vals[i], vals[j], time,
+                mv = _merged_values(cfg, vals[i], vals[j], time,
                                     triple_new_color=False)
                 vals[i] = {k: torch.where(do, mv[k], vals[i][k])
                            for k in vals[i]}
@@ -307,13 +326,13 @@ def fuse_frame(cfg: SuPerConfig, intr: Intrinsics, surfels: SurfelState,
 
     Returns (surfels, remap, diag): ``remap[j] = i`` where surfel j merged
     into i, identity elsewhere."""
-    if cfg.proj_map_mode != "sort" or cfg.method == "semantic-super":
-        raise NotImplementedError(
-            "the port fuses in proj_map_mode='sort' for method='super'")
+    if cfg.proj_map_mode != "sort":
+        raise NotImplementedError("the port fuses in proj_map_mode='sort'")
     h, w = cfg.height, cfg.width
     p = cfg.image_pixels
     time = frame.time
     merge_new = not cfg.disable_merging_new_surfels
+    semantic = cfg.method == "semantic-super"
 
     # --- stage 1: projection ordering ------------------------------------
     _, _, coords, in_bounds = project_points(surfels.points, intr, h, w)
@@ -325,13 +344,14 @@ def fuse_frame(cfg: SuPerConfig, intr: Intrinsics, surfels: SurfelState,
     # --- stage 2: every surfel gates against the candidate at its pixel ---
     bank = _pack_bank(surfels.points, surfels.norms, surfels.colors,
                       surfels.radii, surfels.confs, surfels.seg,
-                      surfels.time_stamp)
+                      surfels.time_stamp,
+                      surfels.seg_conf if semantic else surfels.seg_conf[:0])
     gate_raw = vals_packed = None
     if merge_new:
         fview = _candidate_view(cfg, intr, frame, sf_pix)
         sview = _unpack_bank(bank)
         gate_raw = _merge_gate(cfg, sview, fview)
-        vals_packed = _pack_vals(_merged_values(sview, fview, time,
+        vals_packed = _pack_vals(_merged_values(cfg, sview, fview, time,
                                                 triple_new_color=True))
 
     # --- stages 2-3: layer winners and duplicate merges -------------------
@@ -344,6 +364,7 @@ def fuse_frame(cfg: SuPerConfig, intr: Intrinsics, surfels: SurfelState,
         active=active, points=merged["points"], norms=merged["norms"],
         colors=merged["colors"], radii=merged["radii"],
         confs=merged["confs"], seg=merged["seg"],
+        seg_conf=merged["seg_conf"] if semantic else surfels.seg_conf,
         time_stamp=merged["time_stamp"])
 
     # --- stage 3.5: refresh anchor weights --------------------------------

@@ -88,20 +88,22 @@ def normals_8neighbors(points, colors):
 
 def chamfer_distance_transform(mask, step_x: float, step_y: float,
                                iterations: int = 48):
-    """Min-plus 3x3 chamfer distance to the nearest True pixel."""
+    """Min-plus 3x3 chamfer distance to the nearest True pixel of each
+    (..., H, W) mask.  The steps stay Python numbers (rounded to f32 where
+    they meet the map), so no host copy reaches the device."""
     big = 1e8
     d = torch.where(mask, 0.0, big).to(torch.float32)
     diag = math.sqrt(step_x * step_x + step_y * step_y)
     kern = [[diag, step_y, diag], [step_x, 0.0, step_x],
             [diag, step_y, diag]]
-    kern = torch.tensor(kern, dtype=torch.float32, device=mask.device)
+    h, w = d.shape[-2:]
     for _ in range(iterations):
         p = torch.nn.functional.pad(d, (1, 1, 1, 1), value=big)
         best = None
         for dy in (-1, 0, 1):
             for dx in (-1, 0, 1):
-                c = (p[1 + dy:p.shape[0] - 1 + dy, 1 + dx:p.shape[1] - 1 + dx]
-                     + kern[dy + 1, dx + 1])
+                c = (p[..., 1 + dy:1 + dy + h, 1 + dx:1 + dx + w]
+                     + kern[dy + 1][dx + 1])
                 best = c if best is None else torch.minimum(best, c)
         d = torch.minimum(d, best)
     return d

@@ -1,10 +1,12 @@
-"""SuPer tracking: frame-0 init and the per-frame LM step (counterpart of
-super_tpu/core/tracker.py, LM branch).
+"""SuPer tracking: frame-0 init and the per-frame step (counterpart of
+super_tpu/core/tracker.py).
 
 Frame 0 builds the ED graph and the surfel map; each later frame solves the
-warp field (prepare_lm, lm_solve), applies it, fuses the frame, prunes and
-refreshes the projections.  The step issues no host sync: every counter of
-:class:`StepOutputs` stays a device tensor until the caller reads it.
+warp field, applies it, fuses the frame, prunes and refreshes the
+projections.  The warp field comes from the LM solve (prepare_lm, lm_solve)
+with ``use_derived_gradient``, else from the autograd fit
+(core/optimizer.py:graph_fit).  The step issues no host sync: every counter
+of :class:`StepOutputs` stays a device tensor until the caller reads it.
 Profiler ranges (``step.*``) mark the stages for a traced run.
 """
 
@@ -21,6 +23,7 @@ from super_tpu_torch.core.anchoring import anchor_points, update_graph_knn
 from super_tpu_torch.core.graph import build_graph
 from super_tpu_torch.core.lm import lm_solve
 from super_tpu_torch.core.losses import prepare_lm
+from super_tpu_torch.core.optimizer import graph_fit
 from super_tpu_torch.core.state import (
     FrameData,
     GraphState,
@@ -49,7 +52,8 @@ def init_surfels_from_frame(cfg: SuPerConfig, graph: GraphState,
         return torch.nn.functional.pad(x, (0, n - p))
 
     knn_idx, knn_w, stable = anchor_points(cfg, graph, frame.points,
-                                           frame.valid, seg=frame.seg)
+                                           frame.valid, seg=frame.seg,
+                                           seg_conf=frame.seg_conf)
     uu, vv = pixel_grid(cfg.height, cfg.width, frame.points.device)
     proj_uv = torch.stack([uu.reshape(-1), vv.reshape(-1)], dim=0)
     return SurfelState(
@@ -90,15 +94,29 @@ class StepOutputs(NamedTuple):
 def track_step(cfg: SuPerConfig, intr: Intrinsics, state: TrackerState,
                frame: FrameData) -> Tuple[TrackerState, StepOutputs]:
     """One frame: solve the warp, apply it, fuse, prune, reproject."""
-    if not cfg.solver.use_derived_gradient:
-        raise NotImplementedError("the autograd solver path is not ported")
-    with record_function("step.prepare_lm"):
-        ctx = prepare_lm(cfg, state.surfels, state.graph, frame)
-    with record_function("step.lm_solve"):
-        result = lm_solve(cfg, ctx, intr)
-    with record_function("step.apply_deformation"):
-        surfels, graph = apply_deformation(cfg, state.surfels, state.graph,
-                                           result.beta)
+    if cfg.solver.use_derived_gradient:
+        with record_function("step.prepare_lm"):
+            ctx = prepare_lm(cfg, state.surfels, state.graph, frame)
+        with record_function("step.lm_solve"):
+            result = lm_solve(cfg, ctx, intr)
+        with record_function("step.apply_deformation"):
+            surfels, graph = apply_deformation(cfg, state.surfels,
+                                               state.graph, result.beta)
+        cost, damping = result.cost, result.final_damping
+        tuple_overflow = ctx.layout.overflow_count
+        pair_overflow = ctx.layout.pair_overflow
+    else:
+        with record_function("step.graph_fit"):
+            deform, cost = graph_fit(cfg, state.surfels, state.graph, frame,
+                                     intr)
+        with record_function("step.apply_deformation"):
+            surfels, graph = apply_deformation(cfg, state.surfels,
+                                               state.graph, deform[:-1],
+                                               global_dq=deform[-1])
+        damping = torch.zeros((), dtype=torch.float32,
+                              device=frame.points.device)
+        tuple_overflow = pair_overflow = torch.zeros(
+            (), dtype=torch.int32, device=frame.points.device)
     with record_function("step.fuse_frame"):
         surfels, remap, fdiag = fusion_mod.fuse_frame(cfg, intr, surfels,
                                                       graph, frame)
@@ -114,10 +132,9 @@ def track_step(cfg: SuPerConfig, intr: Intrinsics, state: TrackerState,
                                     cfg.width)
         surfels = surfels._replace(proj_uv=torch.stack([u, v], dim=0))
     outs = StepOutputs(
-        lm_cost=result.cost, lm_damping=result.final_damping,
+        lm_cost=cost, lm_damping=damping,
         num_surfels=surfels.num_active, num_nodes=graph.num_active,
-        tuple_overflow=ctx.layout.overflow_count,
-        pair_overflow=ctx.layout.pair_overflow,
+        tuple_overflow=tuple_overflow, pair_overflow=pair_overflow,
         proj_overflow=fdiag.proj_overflow, add_overflow=fdiag.add_overflow,
         free_exhausted=fdiag.free_exhausted, dup_skipped=fdiag.dup_skipped)
     return TrackerState(surfels=surfels, graph=graph, track=track,

@@ -1,9 +1,11 @@
 """Apply the solved deformation to the surfel map and the ED graph
-(counterpart of super_tpu/core/warp.py, LM path).
+(counterpart of super_tpu/core/warp.py).
 
 Keeps the reference's quirk (nodes.py:207-210): the surfel normal blend uses
 the full 7-vector, so node translations land on the normals before
-renormalisation; node normals are rotated only.
+renormalisation; node normals are rotated only.  The autograd path's global
+row T_g adds only its translation to positions and only its rotation to
+normals.
 """
 
 from __future__ import annotations
@@ -28,11 +30,11 @@ def _rot_fm(qw, qv, v):
     return v + 2.0 * qw * c + 2.0 * _cross_fm(qv, c)
 
 
-def _warp_chunk(bank, pts_fm, nrm_fm, idx_fm, w_fm):
+def _warp_chunk(bank, pts_fm, nrm_fm, idx_fm, w_fm, global_dq=None):
     """Feature-major warp of a set of surfels.
 
-    bank: (10, J) packed [node xyz; q(4); b(3)]; returns (new_points,
-    new_norms), each (3, C).
+    bank: (10, J) packed [node xyz; q(4); b(3)]; global_dq: (7,) or None.
+    Returns (new_points, new_norms), each (3, C).
     """
     k = idx_fm.shape[0]
     g = bank[:, idx_fm.long()]                             # (10, K, C)
@@ -47,18 +49,22 @@ def _warp_chunk(bank, pts_fm, nrm_fm, idx_fm, w_fm):
         v = pts_fm - ga
         p_acc = p_acc + wa * (_rot_fm(qw, qv, v) + b + ga)
         n_acc = n_acc + wa * (_rot_fm(qw, qv, nrm_fm) + b)
+    if global_dq is not None:
+        p_acc = p_acc + global_dq[4:7, None]
+        n_acc = _rot_fm(global_dq[0:1, None], global_dq[1:4, None], n_acc)
     n_acc = n_acc / torch.clamp(
         torch.sqrt(torch.sum(n_acc * n_acc, dim=0, keepdim=True)), min=1e-12)
     return p_acc, n_acc
 
 
 def apply_deformation(cfg: SuPerConfig, surfels: SurfelState,
-                      graph: GraphState, beta) -> Tuple[SurfelState,
-                                                        GraphState]:
-    """Warp the active surfels and move the ED nodes by ``beta`` (J, 7)."""
+                      graph: GraphState, beta, global_dq=None
+                      ) -> Tuple[SurfelState, GraphState]:
+    """Warp the active surfels and move the ED nodes by ``beta`` (J, 7),
+    then by the autograd path's global row ``global_dq`` (7,) if given."""
     bank = torch.cat([graph.points.T, beta.T.to(surfels.points.dtype)])
     new_p, new_n = _warp_chunk(bank, surfels.points, surfels.norms,
-                               surfels.knn_idx, surfels.knn_w)
+                               surfels.knn_idx, surfels.knn_w, global_dq)
     act = surfels.active[None, :]
     surfels = surfels._replace(
         points=torch.where(act, new_p, surfels.points),
@@ -66,6 +72,9 @@ def apply_deformation(cfg: SuPerConfig, surfels: SurfelState,
 
     new_node_points = graph.points + beta[:, 4:7]
     nn = transform_quat_t(graph.norms, beta[:, 0:4])
+    if global_dq is not None:
+        new_node_points = new_node_points + global_dq[4:7]
+        nn = transform_quat_t(nn, global_dq[0:4])
     nn = nn / torch.clamp(torch.sqrt(torch.sum(nn * nn, dim=-1, keepdim=True)),
                           min=1e-12)
     gact = graph.active[:, None]

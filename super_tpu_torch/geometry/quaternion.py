@@ -70,3 +70,11 @@ def transform_quat_t_jac(v, beta, skew_v=None):
     d_qv = 2.0 * (qv_dot_v * eye3 + outer - 2.0 * outer.transpose(-1, -2)
                   - qw[..., :, None] * skew_v)
     return tv, torch.cat([d_qw, d_qv], dim=-1)
+
+
+def blend_warp(d_points, anchors, beta, w):
+    """Warp each point by its K anchor transforms: (N, 3) warped points
+    ``sum_i w_i [T(q_i, b_i)(p - g_i) + g_i]`` from displacements and
+    anchors (N, K, 3), gathered transforms (N, K, 7) and weights (N, K)."""
+    tv = transform_quat_t(d_points, beta) + anchors
+    return torch.sum(w[..., None] * tv, dim=-2)

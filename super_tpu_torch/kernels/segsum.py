@@ -14,6 +14,14 @@ ranks, the ARAP node ids, the dense block ids), so :func:`segment_plan`
 sorts them once a frame and every LM trip reuses the plan.
 :func:`segment_sum` takes the plain version (``index_add_``) for CPU
 tensors only; for CUDA tensors it launches the kernel or raises.
+
+The autograd path sums through the same kernel.  :func:`segment_gather`
+gathers rows by id, and its backward pass, PyTorch's ``index_add_`` for a
+plain gather, is the segment sum of the output's gradient under a plan
+made once a frame (tuple nodes, ED neighbours, triangle corners).
+:func:`segment_reduce` is the segment sum as a differentiable op (the soft
+splat's per-pixel sums, planned at every evaluation because the pixels
+move with the warp); its backward pass gathers.
 """
 
 from __future__ import annotations
@@ -136,3 +144,37 @@ def segment_sum(values, plan: SegmentPlan, *, sum_dtype=None, base=None):
 
 
 segment_sum.launches = 0
+
+
+class _SegmentGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, plan):
+        ctx.plan = plan
+        return x.index_select(0, plan.ids)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return segment_sum(grad, ctx.plan), None
+
+
+class _SegmentReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, values, plan):
+        ctx.plan = plan
+        return segment_sum(values, plan)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.index_select(0, ctx.plan.ids), None
+
+
+def segment_gather(x, plan: SegmentPlan):
+    """Rows ``x[plan.ids]`` (R, ...) of ``x`` (S, ...), whose gradient is
+    summed back into the S rows by :func:`segment_sum` (fixed order)."""
+    return _SegmentGather.apply(x, plan)
+
+
+def segment_reduce(values, plan: SegmentPlan):
+    """:func:`segment_sum` of ``values`` (R, ...) as a differentiable op:
+    (S, ...), with the gradient of each row gathered from its segment."""
+    return _SegmentReduce.apply(values, plan)

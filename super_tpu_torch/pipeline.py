@@ -10,9 +10,11 @@ ground truth is given the tracked points are bound and read
 frame, for the frame's time, as the JAX package's ``block_until_ready``
 does.
 
-Not ported yet: the logger, render and checkpoint hooks, depth and
-segmentation from models, given segmentations, and the optical-flow step
-of ``sf_corr``; each raises ``NotImplementedError`` when asked for.
+Given segmentations (``segs``, ``seg_confs``) go into each frame's
+preprocessing, as the semantic configurations need.  Not ported yet: the
+logger, render and checkpoint hooks, depth and segmentation from models,
+and the optical-flow step of ``sf_corr``; each raises
+``NotImplementedError`` when asked for.
 """
 
 from __future__ import annotations
@@ -64,22 +66,24 @@ class SuPerPipeline:
 
         depths: (T, H, W) numpy; colors: (T, H, W, 3) or (T, 3, H, W)
         numpy; gt_xy: optional (T, P, 2) GT screen coordinates, gt_valid
-        (T, P) bool.  Returns the summary metrics.
+        (T, P) bool; segs: optional (T, H, W) class labels, seg_confs
+        (T, C, H, W) class scores.  Returns the summary metrics.
         """
         if depths is None or models is not None or right_colors is not None:
             raise NotImplementedError(
                 "depth from models (and stereo) is not ported; pass depths")
-        if segs is not None or seg_confs is not None:
-            raise NotImplementedError("given segmentations are not ported")
         cfg, dev = self.cfg, self.device
         for t in range(len(colors)):
             tic = _time.perf_counter()
             color = np.asarray(colors[t])
             if color.shape[-1] == 3:  # HWC -> CHW
                 color = color.transpose(2, 0, 1)
-            frame = preprocess_frame(cfg, self.intr, np.asarray(depths[t]),
-                                     np.ascontiguousarray(color), float(t),
-                                     device=dev)
+            frame = preprocess_frame(
+                cfg, self.intr, np.asarray(depths[t]),
+                np.ascontiguousarray(color), float(t),
+                seg=None if segs is None else np.asarray(segs[t]),
+                seg_conf=None if seg_confs is None else np.asarray(
+                    seg_confs[t]), device=dev)
             outs = None
             if self.state is None:
                 self.state = init_tracker(cfg, frame)

@@ -1,22 +1,28 @@
-"""Where the time of a path of the LM tracking step goes, on one CUDA card.
+"""Where the time of a path of the tracking step goes, on one CUDA card.
 
     python -m super_tpu_torch.profile_step [--workload lm] [--frames 4]
                                            [--seed 0]
 
-Runs a path of the LM tracking step at 480 x 640 (config.workload_config):
+Runs a path of the tracking step at 480 x 640 (config.workload_config):
 ``lm``, the headline (mesh step 30, J = 384, pair-sparse CG by K1);
 ``dense16``, the dense ED graph (mesh step 16, J = 1216, K1b);
 ``pcg_pallas``, ``cholesky`` or ``pcg``, the headline with that
 dense-matrix solver (K3 for ``pcg_pallas``); ``per_iteration``, the
-headline with the moving-target association (K1, K2's memory form).
+headline with the moving-target association (K1, K2's memory form);
+``semantic``, the autograd Semantic-SuPer fit (Adam, 10 steps) on frames
+with the generator's two-class segmentations.
 Frame 0 initialises, one frame warms up, one runs under CUDA's sync debug
 mode to find any host sync in the step, then ``--frames`` frames run with
 tracing off, each timed on the host clock around a synchronised step, and
 the same number of frames under ``torch.profiler``.  Prints one JSON line:
 the card, ms per frame untraced, and from the traced run the host and
-device ms and the kernel launches per frame of each ``step.*`` and
-``lm.*`` range, the kernels' device ms and launches per frame and busy
-share of the traced window, and the kernels with the most device time.
+device ms and the kernel launches per frame of each ``step.*``,
+``lm.*`` and ``graph_fit.*`` range (a range holds the kernels launched
+from its thread; the autograd engine launches the fit's backward pass
+from its own, so those kernels lie in no range and are counted as
+``device_ms_in_no_range``), the kernels' device ms and launches per frame
+and busy share of the traced window, and the kernels with the most device
+time.
 """
 
 from __future__ import annotations
@@ -41,9 +47,11 @@ from super_tpu_torch.core.preprocess import preprocess_frame
 from super_tpu_torch.core.tracker import init_tracker, track_step
 from super_tpu_torch.data.synthetic import default_intrinsics, generate
 
-RANGES = ("step.prepare_lm", "step.lm_solve", "step.apply_deformation",
-          "step.fuse_frame", "step.prune", "lm.associate", "lm.assemble",
-          "lm.solve", "lm.final_cost")
+RANGES = ("step.prepare_lm", "step.lm_solve", "step.graph_fit",
+          "step.apply_deformation", "step.fuse_frame", "step.prune",
+          "lm.associate", "lm.assemble", "lm.solve", "lm.final_cost",
+          "graph_fit.prepare", "graph_fit.loss", "graph_fit.backward",
+          "graph_fit.step")
 
 
 def _count_syncs(cfg, intr, state, frame):
@@ -86,10 +94,15 @@ def main():
     cfg = workload_config(args.workload)
     intr = default_intrinsics(cfg.height, cfg.width, device=dev)
     n = 3 + 2 * args.frames
-    seq = generate(n, cfg.height, cfg.width, intr=intr, seed=args.seed)
+    semantic = cfg.method == "semantic-super"
+    seq = generate(n, cfg.height, cfg.width, intr=intr, seed=args.seed,
+                   num_classes=cfg.num_classes if semantic else 0)
     colors = np.ascontiguousarray(seq.colors.transpose(0, 3, 1, 2))
-    frames = [preprocess_frame(cfg, intr, seq.depths[t], colors[t], float(t),
-                               device=dev) for t in range(n)]
+    frames = [preprocess_frame(
+        cfg, intr, seq.depths[t], colors[t], float(t),
+        seg=seq.segs[t] if semantic else None,
+        seg_conf=seq.seg_confs[t] if semantic else None, device=dev)
+        for t in range(n)]
     state = init_tracker(cfg, frames[0])
     state, _ = track_step(cfg, intr, state, frames[1])      # warm-up
     state, syncs = _count_syncs(cfg, intr, state, frames[2])
@@ -118,12 +131,18 @@ def main():
     # launched through ctypes and so have no PyTorch op as parent.
     dev_events = [e for e in prof.events()
                   if e.device_type == DeviceType.CUDA]
+    # The device timeline also carries every host range's span (ours, and
+    # PyTorch's own such as "Optimizer.step#Adam.step"); a kernel's name is
+    # never a host event's.
+    host_names = {e.name for e in prof.events()
+                  if e.device_type == DeviceType.CPU}
     kernels = [(e.time_range.start, e.time_range.end, e.name)
-               for e in dev_events if e.name not in RANGES]
+               for e in dev_events if e.name not in host_names]
     kernels.sort()
     starts = [k[0] for k in kernels]
     per = 1e3 * args.frames
     ranges = {}
+    spans = []
     for name in RANGES:
         host = [e for e in prof.events()
                 if e.device_type == DeviceType.CPU and e.name == name]
@@ -131,6 +150,7 @@ def main():
         for e in dev_events:
             if e.name != name:
                 continue
+            spans.append((e.time_range.start, e.time_range.end))
             lo = bisect.bisect_left(starts, e.time_range.start)
             for k0, k1, _ in kernels[lo:]:
                 if k0 >= e.time_range.end:
@@ -148,10 +168,24 @@ def main():
         by_name[kname][0] += 1
         by_name[kname][1] += k1 - k0
     device_ms = sum(k1 - k0 for k0, k1, _ in kernels) / 1e3
+    merged = []                       # the ranges' union, disjoint spans
+    for a, b in sorted(spans):
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    merged_starts = [a for a, _ in merged]
+    no_range_us = 0.0
+    for k0, k1, _ in kernels:
+        i = bisect.bisect_right(merged_starts, k0) - 1
+        if i < 0 or k1 > merged[i][1]:
+            no_range_us += k1 - k0
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
     print(json.dumps(dict(
         card=card, workload=args.workload,
         linear_solver=cfg.solver.linear_solver,
+        optimizer=(None if cfg.solver.use_derived_gradient
+                   else cfg.solver.optimizer),
         node_capacity=cfg.capacity.node_capacity, frames=args.frames,
         seed=args.seed,
         host_syncs_per_frame=len(syncs), host_sync_sites=syncs[:10],
@@ -161,6 +195,7 @@ def main():
         device_ms_per_frame=device_ms / args.frames,
         kernels_per_frame=len(kernels) / args.frames,
         device_busy_share_traced=device_ms / window_ms,
+        device_ms_in_no_range=no_range_us / per,
         ranges=ranges,
         top_kernels=[dict(name=kname[:90], calls_per_frame=c / args.frames,
                           device_ms_per_frame=t / per)

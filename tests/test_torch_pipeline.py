@@ -115,7 +115,9 @@ def test_unported_hooks_raise():
     pipe = TSuPerPipeline(cfg, intr, device="cpu")
     with pytest.raises(NotImplementedError):
         pipe.run(None, np.zeros((1, H, W, 3), np.float32))
+    # Given segmentations are ported (test_torch_semantic_pipeline.py);
+    # depth from stereo pairs is not.
     with pytest.raises(NotImplementedError):
         pipe.run(np.zeros((1, H, W), np.float32),
                  np.zeros((1, H, W, 3), np.float32),
-                 segs=np.zeros((1, H * W), np.int32))
+                 right_colors=np.zeros((1, H, W, 3), np.float32))

@@ -48,6 +48,42 @@ def headline_grid_config(**solver):
                                            **solver)))
 
 
+def semantic_config(render=True, optimizer="Adam", lr=2e-4):
+    """tiny_config with the semantic losses on the autograd path: with
+    ``render``, tests/test_semantic.py's configuration (superv2 data);
+    without, the root bench's semantic workload (bench.py:build_workload,
+    semantic=True: superv1 data, no render loss)."""
+    from super_tpu.config import LossConfig
+
+    base = tiny_config()
+    cfg = base.replace(
+        method="semantic-super", num_classes=2, load_seg=True,
+        losses=LossConfig(
+            sf_point_plane=False, sf_soft_seg_point_plane=True,
+            mesh_arap=False, mesh_rot=True, mesh_face=True,
+            sf_bn_morph=True, render_loss=render),
+        solver=dataclasses.replace(
+            base.solver, use_derived_gradient=False, optimizer=optimizer,
+            learning_rate=lr, num_iterations=10))
+    return cfg.replace(data="superv2") if render else cfg
+
+
+def semantic_scene(num_frames, cfg, seed=3):
+    """JAX-preprocessed tiny frames with the generator's two-class
+    segmentations: (intr, seq, frames)."""
+    h, w = cfg.height, cfg.width
+    intr = default_intrinsics(h, w)
+    seq = generate(num_frames, h, w, intr=intr, seed=seed, num_classes=2)
+    pre = jax.jit(lambda d, c, t, s, sc: preprocess_frame(
+        cfg, intr, d, c, t, seg=s, seg_conf=sc))
+    frames = [pre(jnp.asarray(seq.depths[t]),
+                  jnp.asarray(seq.colors[t].transpose(2, 0, 1)),
+                  jnp.float32(t), jnp.asarray(seq.segs[t]),
+                  jnp.asarray(seq.seg_confs[t]))
+              for t in range(num_frames)]
+    return intr, seq, frames
+
+
 def pipeline_pair(cfg, seq):
     """The JAX package's SuPerPipeline and the port's (on the CPU) over
     ``seq`` with its GT points: (JAX summary, port summary, port
