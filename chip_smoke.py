@@ -5,10 +5,10 @@
 
 Builds the port's hand-written CUDA kernels from super_tpu_torch/csrc, holds
 each against its plain PyTorch version on the card at the shapes of the
-paths that run it, then drives four paths of the LM tracking step at
-480 x 640 (synthetic frames -> preprocess_frame -> init_tracker ->
-track_step) and checks that each went through its kernels and that its
-results are right:
+paths that run it, then drives the paths of the tracking step at 480 x 640
+(synthetic frames -> preprocess_frame -> init_tracker -> track_step; on
+the live path the frames' depth from monodepth2) and checks that each went
+through its kernels and that its results are right:
 
 - main: the headline workload, ``lm_workload_config(480, 640, 30)``
   (J = 384, pair-sparse CG by K1, the data term's tuple Grams by K2 with
@@ -63,7 +63,24 @@ static error), then the semantic workload (below the static error, as
 tests/test_semantic.py asks), tests/test_semantic.py's configuration with
 the render loss and ``semantic_super_config()`` (SGD) at full size;
 ``bench`` prints ``python -m super_tpu_torch.bench``'s line at 6 frames,
-``semantic_hz`` with it.
+``semantic_hz``, the perception nets' rates and ``e2e_depth_hz`` with it.
+
+The perception nets (seeded random weights, random batch-norm
+statistics): ``perception`` runs monodepth2 (flip post-process, blur 5),
+RAFT-Stereo, DeepLabV3+, U-Net and RAFT flow at 480 x 640 on the card and
+on the CPU path and holds them together with TF32 off (1e-4 of the
+largest magnitude, the RAFTs 1e-3 at 4 GRU iterations), requires a second
+card run bitwise equal, and reports the TF32 gap, each net's device ms at
+its published iterations (TF32 off and on) and its device operations a
+call; ``e2e_depth``, this slice's main path, tracks 3 frames of
+``workload_config("e2e_depth")`` with each frame's depth from monodepth2
+(K1 and ``data_gram`` once an LM trip, the segment sum 4 times a trip),
+holds frame 1's depth to the CPU path's and a second track bitwise;
+``semantic_models`` tracks 3 frames of the semantic workload with
+DeepLabV3+ segmentations and RAFT's ``sf_corr`` flow (the corr face
+nonzero on every frame, a repeat bitwise), then one frame with the flow
+of the render.  The kernels line's launches of K1, ``data_gram`` and the
+segment sum are ``e2e_depth``'s, each earlier path's beside.
 
 Launch counts are set to 0 just before a path runs and read just after.
 Each phase prints one JSON line; any failure raises and exits non-zero.  The
@@ -1347,7 +1364,7 @@ def _grad_nudged(scale):
 
     real = optimizer.autograd_total
 
-    def nudged(cfg, ctx, graph, deform, intr):
+    def nudged(cfg, ctx, graph, deform, intr, **kw):
         gen = torch.Generator(device="cpu").manual_seed(SEED)
         sign = (torch.randint(0, 2, deform.shape, generator=gen) * 2
                 - 1).to(deform.device, torch.float32)
@@ -1356,7 +1373,7 @@ def _grad_nudged(scale):
         # in every sum order.
         d.register_hook(lambda g: g + torch.where(
             g != 0, (scale - 1.0) * sign * torch.max(torch.abs(g)), 0.0))
-        return real(cfg, ctx, graph, d, intr)
+        return real(cfg, ctx, graph, d, intr, **kw)
 
     optimizer.autograd_total = nudged
     try:
@@ -1520,6 +1537,316 @@ def phase_repeat_semantic(dev, cfg, intr, frames):
               loss=l1.tolist()))
     if not all(same.values()):
         raise RuntimeError(f"the semantic path does not repeat: {same}")
+
+
+# The perception nets' tolerances against the CPU path (largest error over
+# the output's largest magnitude, TF32 off): the feed-forward nets, and
+# the recurrent RAFTs at the JAX package's own RAFT parity tolerance
+# (tests/test_raft_parity.py), compared at PERCEPTION_COMPARE_ITERS GRU
+# iterations (iterations are depth, not width).
+NET_TOL, RAFT_TOL = 1e-4, 1e-3
+PERCEPTION_COMPARE_ITERS = 4
+PERCEPTION_TIMED_RUNS = 10
+
+
+def _cudnn(tf32):
+    """cuDNN with TF32 convolutions on or off, every other flag as the
+    package leaves it (no benchmark search, the default algorithms)."""
+    return torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                      deterministic=False, allow_tf32=tf32)
+
+
+def _device_ops(fn):
+    """Device operations (kernels, copies, memsets) one call of ``fn``
+    launches, from a torch.profiler trace."""
+    from torch.autograd import DeviceType
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    # The device timeline also mirrors host ranges; a kernel's name is
+    # never a host event's.
+    host = {e.name for e in prof.events() if e.device_type == DeviceType.CPU}
+    return sum(1 for e in prof.events()
+               if e.device_type == DeviceType.CUDA and e.name not in host)
+
+
+def _perception_nets():
+    """[(name, model, run(model, left, right, iters), tolerance, published
+    GRU iterations or None)] of the nets the slice's paths run."""
+    from super_tpu_torch.models.monodepth2 import Monodepth2, predict_depth
+    from super_tpu_torch.models.raft_flow import RAFTFlow
+    from super_tpu_torch.models.raft_stereo import RAFTStereo
+    from super_tpu_torch.models.segmentation import build_seg_model
+
+    def mono(m, a, b, it):
+        return predict_depth(m, a, 0.1, 80.0, post_process=True,
+                             filter_kernel=5)[1]
+
+    def pair(m, a, b, it):
+        return m(a[None], b[None], iters=it)[0]
+
+    def seg(m, a, b, it):
+        return m(a[None])[0]
+
+    return [("monodepth2_r18", Monodepth2(18), mono, NET_TOL, None),
+            ("raft_stereo", RAFTStereo(32), pair, RAFT_TOL, 32),
+            ("deeplabv3plus_r18", build_seg_model("deeplabv3plus", 2), seg,
+             NET_TOL, None),
+            ("unet_r18", build_seg_model("unet", 2), seg, NET_TOL, None),
+            ("raft_flow", RAFTFlow(12), pair, RAFT_TOL, 12)]
+
+
+def phase_perception(dev, intr):
+    """Each perception net at 480 x 640 (seeded random weights, random
+    batch-norm statistics) on frames 0 and 1 of the synthetic sequence
+    (left and right, or the flow's pair): the card against the CPU path
+    with TF32 off (at PERCEPTION_COMPARE_ITERS GRU iterations for the
+    RAFTs), a second card run bitwise equal to the first, the TF32 gap,
+    and the device time at the published iterations, mean of
+    PERCEPTION_TIMED_RUNS runs between CUDA events, TF32 off and on, with
+    the device operations of one call."""
+    import copy
+
+    from super_tpu_torch.config import workload_config
+    from super_tpu_torch.models import init_random
+
+    seq = _sequence(workload_config("lm"), intr, 2)
+    left, right = (torch.from_numpy(np.ascontiguousarray(
+        seq.colors[t].transpose(2, 0, 1))) for t in (0, 1))
+    lc, rc = left.to(dev), right.to(dev)
+    recs, bad = [], []
+    for i, (name, model, run, tol, iters) in enumerate(_perception_nets()):
+        init_random(model, torch.Generator().manual_seed(SEED + i))
+        card = copy.deepcopy(model).to(dev)
+        cmp_iters = iters and PERCEPTION_COMPARE_ITERS
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            ref = run(model, left, right, cmp_iters)
+            cpu_s = time.perf_counter() - t0
+            with _cudnn(False):
+                out1 = run(card, lc, rc, cmp_iters)
+                out2 = run(card, lc, rc, cmp_iters)
+                ms = cuda_ms(lambda: run(card, lc, rc, iters),
+                             PERCEPTION_TIMED_RUNS)
+                ops = _device_ops(lambda: run(card, lc, rc, iters))
+            with _cudnn(True):
+                out_tf = run(card, lc, rc, cmp_iters)
+                ms_tf = cuda_ms(lambda: run(card, lc, rc, iters),
+                                PERCEPTION_TIMED_RUNS)
+        torch.cuda.synchronize()
+        rec = dict(net=name, shape=list(out1.shape), compare_iters=cmp_iters,
+                   iters=iters, tol=tol, max_abs_err=float(torch.max(
+                       torch.abs(out1.cpu() - ref))),
+                   scale=float(torch.max(torch.abs(ref))),
+                   rel_err=_rel(out1, ref), tf32_rel_err=_rel(out_tf, ref),
+                   bitwise=_same(out1, out2),
+                   finite=bool(torch.isfinite(out1).all()), ms=ms,
+                   ms_tf32=ms_tf, device_ops=ops, cpu_s=cpu_s)
+        emit(dict(phase="perception", **rec))
+        recs.append(rec)
+        if not (rec["rel_err"] <= tol and rec["bitwise"] and rec["finite"]):
+            bad.append(name)
+        del model, card
+    if bad:
+        raise RuntimeError(f"perception nets that fail on the card: {bad}")
+    return recs
+
+
+def _track_with_models(cfg, intr, models, colors, depths=None):
+    """The live path on ``colors`` (T, 3, H, W) on the card: each frame's
+    inputs from the nets (the depth from ``depths`` where given), then
+    preprocess_frame, then init_tracker (frame 0) or track_step (with the
+    flow of the previous frame's colour where ``models`` has a flow net),
+    the nets, the preprocessing and the step under CUDA's sync debug mode
+    "error": a host sync fails the run.  (the state after each frame,
+    per-frame step outputs as numpy, net + preprocess ms, step ms,
+    frames)."""
+    from super_tpu_torch.convert import to_numpy
+    from super_tpu_torch.core.preprocess import preprocess_frame
+    from super_tpu_torch.core.tracker import init_tracker, track_step
+    from super_tpu_torch.factory import predict_frame_inputs
+
+    state, prev = None, None
+    states, outs, net_ms, step_ms, frames = [], [], [], [], []
+    for t in range(len(colors)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            pred = predict_frame_inputs(cfg, models, colors[t])
+            frame = preprocess_frame(
+                cfg, intr, pred["depth"] if depths is None else depths[t],
+                colors[t], float(t), seg=pred.get("seg"),
+                seg_conf=pred.get("seg_conf"), device="cuda")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        if state is None:
+            state = init_tracker(cfg, frame)
+        else:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                state, o = track_step(
+                    cfg, intr, state, frame, models=models,
+                    prev_color=prev if models.flow_model is not None
+                    else None)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            outs.append(to_numpy(o))
+        torch.cuda.synchronize()
+        net_ms.append((t1 - t0) * 1e3)
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        prev = frame.color_image
+        frames.append(frame)
+        states.append(state)
+    return states, outs, net_ms, step_ms, frames
+
+
+def _colors(cfg, intr, n, dev):
+    seq = _sequence(cfg, intr, n)
+    return torch.as_tensor(np.ascontiguousarray(
+        seq.colors[:n].transpose(0, 3, 1, 2)), device=dev), seq
+
+
+def phase_e2e_depth(dev, intr):
+    """This slice's main path, the live path of the root bench's
+    e2e_depth_hz (``workload_config("e2e_depth")``): PATH_FRAMES tracked
+    frames, each frame's depth from monodepth2 (seeded random weights,
+    flip post-processing), with the launch counts zeroed just before and
+    read just after: K1 and ``data_gram`` once an LM trip, the segment sum
+    SEGSUM_PER_TRIP times a trip and once at frame 0.  Costs finite,
+    surfels alive, frame 1's depth against the CPU path's, and a second
+    track bitwise equal.  Returns the launches."""
+    from super_tpu_torch.config import workload_config
+    from super_tpu_torch.factory import build_models, predict_frame_inputs
+
+    cfg = workload_config("e2e_depth")
+    models = build_models(cfg, seed=SEED, device=dev)
+    colors, _ = _colors(cfg, intr, PATH_FRAMES + 1, dev)
+    wrappers = _launch_counts()
+    for w in wrappers.values():
+        w.launches = 0
+    states, outs, net_ms, step_ms, frames = _track_with_models(
+        cfg, intr, models, colors)
+    launches = {k: w.launches for k, w in wrappers.items()}
+    trips = cfg.solver.num_iterations * PATH_FRAMES
+    want = {k: 0 for k in wrappers}
+    want.update(pairs_cg=trips, data_gram=trips,
+                segment_sum=SEGSUM_PER_TRIP * trips + SEGSUM_AT_INIT)
+    states2, _, _, _, frames2 = _track_with_models(cfg, intr, models,
+                                                   colors)
+    state, state2 = states[-1], states2[-1]
+    cpu = build_models(cfg, seed=SEED, device="cpu")
+    with torch.no_grad():
+        depth_cpu = predict_frame_inputs(cfg, cpu, colors[1].cpu())["depth"]
+        depth_card = predict_frame_inputs(cfg, models, colors[1])["depth"]
+    depth_rel = _rel(depth_card, depth_cpu)
+    bitwise = dict(surfels=_same(state.surfels, state2.surfels),
+                   graph=_same(state.graph, state2.graph),
+                   frames=all(_same(a, b) for a, b in zip(frames, frames2)))
+    costs = [float(o.lm_cost) for o in outs]
+    surfels = [int(o.num_surfels) for o in outs]
+    ok = (launches == want and all(math.isfinite(c) for c in costs)
+          and all(n > 0 for n in surfels) and depth_rel <= NET_TOL
+          and all(bitwise.values()))
+    emit(dict(phase="e2e_depth", height=cfg.height, width=cfg.width,
+              frames=PATH_FRAMES, launches=launches,
+              launches_per_frame={k: v / PATH_FRAMES
+                                  for k, v in launches.items() if v},
+              lm_cost=costs, num_surfels=surfels,
+              num_nodes=[int(o.num_nodes) for o in outs],
+              net_preprocess_ms=net_ms, step_ms=step_ms,
+              depth_frame1=dict(rel_err=depth_rel, tol=NET_TOL,
+                                min=float(depth_card.min()),
+                                max=float(depth_card.max())),
+              bitwise=bitwise))
+    if not ok:
+        raise RuntimeError(f"e2e_depth path check failed (launches "
+                           f"{launches}, want {want}; costs {costs}; "
+                           f"depth {depth_rel}; bitwise {bitwise})")
+    return launches
+
+
+def _semantic_models_config(match_renderimg=False):
+    from super_tpu_torch.config import workload_config
+
+    cfg = workload_config("semantic").replace(seg_model="deeplabv3plus")
+    return cfg.replace(losses=dataclasses.replace(
+        cfg.losses, sf_corr=True, sf_corr_match_renderimg=match_renderimg))
+
+
+def phase_semantic_models(dev, intr):
+    """The semantic workload with its models: DeepLabV3+ segmentations in
+    place of the given ones and the sf_corr term with RAFT's flow from the
+    previous frame's colour (seeded random weights), PATH_FRAMES tracked
+    frames of the generator's depths: the segment sum SEGSUM_PER_FIT_STEP
+    times a fit step and once at frame 0, no other kernel; every fit loss
+    finite; the corr face nonzero on every tracked frame; a repeat bitwise
+    equal; then one frame with the flow re-inferred from the render
+    (``sf_corr_match_renderimg``)."""
+    from super_tpu_torch.core.optimizer import autograd_total, \
+        prepare_autograd
+    from super_tpu_torch.factory import build_models
+
+    cfg = _semantic_models_config()
+    models = build_models(cfg, seed=SEED, device=dev)
+    colors, seq = _colors(cfg, intr, PATH_FRAMES + 1, dev)
+    depths = torch.as_tensor(seq.depths[:PATH_FRAMES + 1], device=dev)
+    wrappers = _launch_counts()
+    for w in wrappers.values():
+        w.launches = 0
+    states, outs, net_ms, step_ms, frames = _track_with_models(
+        cfg, intr, models, colors, depths=depths)
+    launches = {k: w.launches for k, w in wrappers.items()}
+    want = {k: 0 for k in wrappers}
+    want["segment_sum"] = (SEGSUM_PER_FIT_STEP * cfg.solver.num_iterations
+                           * PATH_FRAMES + SEGSUM_AT_INIT)
+    states2, outs2, _, _, _ = _track_with_models(cfg, intr, models, colors,
+                                                 depths=depths)
+    state, state2 = states[-1], states2[-1]
+    bitwise = dict(surfels=_same(state.surfels, state2.surfels),
+                   graph=_same(state.graph, state2.graph),
+                   loss=[float(a.lm_cost) for a in outs]
+                   == [float(b.lm_cost) for b in outs2])
+    # The faces at the identity of each tracked frame's fit, from the
+    # state before it.
+    corr = []
+    ident = _deform(cfg, dev)
+    with torch.no_grad():
+        for t in range(1, len(frames)):
+            st = states[t - 1]
+            flow = models.flow_model(frames[t - 1].color_image[None],
+                                     frames[t].color_image[None])[0]
+            ctx = prepare_autograd(cfg, st.surfels, st.graph, frames[t],
+                                   flow=flow, intr=intr)
+            parts = autograd_total(cfg, ctx, st.graph, ident, intr)[1]
+            corr.append({k: float(v) for k, v in parts.items()})
+    mcfg = _semantic_models_config(match_renderimg=True)
+    _, mouts, _, mstep_ms, _ = _track_with_models(
+        mcfg, intr, models, colors[:2], depths=depths[:2])
+    costs = [float(o.lm_cost) for o in outs]
+    ok = (launches == want and all(math.isfinite(c) for c in costs)
+          and all(int(o.num_surfels) > 0 for o in outs)
+          and all(p["corr"] > 0 and all(map(math.isfinite, p.values()))
+                  for p in corr)
+          and all(bitwise.values())
+          and math.isfinite(float(mouts[0].lm_cost)))
+    emit(dict(phase="semantic_models", frames=PATH_FRAMES,
+              launches=launches, fit_loss=costs,
+              num_surfels=[int(o.num_surfels) for o in outs],
+              faces_at_identity=corr, net_preprocess_ms=net_ms,
+              step_ms=step_ms, bitwise=bitwise,
+              match_renderimg=dict(fit_loss=float(mouts[0].lm_cost),
+                                   step_ms=mstep_ms[1])))
+    if not ok:
+        raise RuntimeError(f"semantic_models path check failed (launches "
+                           f"{launches}, want {want}; losses {costs}; "
+                           f"corr {corr}; bitwise {bitwise})")
+    return launches
 
 
 # The JAX README's accuracy table (480 x 640, 30 synthetic frames, 20
@@ -1707,6 +2034,9 @@ def main() -> int:
     sem_cfg, sem_frames, sem_launches = phase_semantic(dev, intr)
     segsum_sem = phase_segsum_semantic(dev, intr, sem_frames)
     phase_repeat_semantic(dev, sem_cfg, intr, sem_frames)
+    phase_perception(dev, intr)
+    e2e_launches = phase_e2e_depth(dev, intr)
+    phase_semantic_models(dev, intr)
     # The timed phases are done: the workers' CPU load costs only the
     # CPU reference solves time from here on.
     pool, sequences = _start_sequences(intr, PIPELINE_SEEDS)
@@ -1719,17 +2049,27 @@ def main() -> int:
         pool.shutdown(wait=True, cancel_futures=True)
     phase_bench(dev)
 
-    # The segment sum on this slice's path, the semantic fit (its anchor
-    # rows' sum timed), with its launches and time on the headline beside.
+    # The launches of K1, data_gram and the segment sum are those of this
+    # slice's main path, the live path with monodepth2's depth; each
+    # earlier path's count rides beside.  The segment sum's time is that
+    # of the semantic fit's anchor rows, with the headline's pair rows
+    # beside.
     segsum_entry = _kernel_entry(
         "segment_sum", "super_tpu_torch/csrc/segment_sum.cu", None,
-        sem_launches["segment_sum"], segsum_sem)
+        e2e_launches["segment_sum"], segsum_sem)
     segsum_entry.update(launches_lm=launches["segment_sum"],
+                        launches_semantic=sem_launches["segment_sum"],
                         lm_pair_rows_ms=segsum["ms"])
+    k1_entry = _kernel_entry("pairs_cg", "super_tpu_torch/csrc/pairs_cg.cu",
+                             "super_tpu/pallas_kernels/pcg.py:92",
+                             e2e_launches["pairs_cg"], k1)
+    k1_entry.update(launches_lm=launches["pairs_cg"])
+    k2_entry = _kernel_entry("data_gram", "super_tpu_torch/csrc/tuple_gram.cu",
+                             "super_tpu/pallas_kernels/gram.py:33",
+                             e2e_launches["data_gram"], k2_fused)
+    k2_entry.update(launches_lm=launches["data_gram"])
     emit({"kernels": [
-        _kernel_entry("pairs_cg", "super_tpu_torch/csrc/pairs_cg.cu",
-                      "super_tpu/pallas_kernels/pcg.py:92",
-                      launches["pairs_cg"], k1),
+        k1_entry,
         _kernel_entry("pairs_cg_chunked",
                       "super_tpu_torch/csrc/pairs_cg.cu",
                       "super_tpu/pallas_kernels/pcg.py:177",
@@ -1737,9 +2077,7 @@ def main() -> int:
         _kernel_entry("tuple_gram", "super_tpu_torch/csrc/tuple_gram.cu",
                       "super_tpu/pallas_kernels/gram.py:33",
                       per_it_launches["tuple_gram"], k2_per_it),
-        _kernel_entry("data_gram", "super_tpu_torch/csrc/tuple_gram.cu",
-                      "super_tpu/pallas_kernels/gram.py:33",
-                      launches["data_gram"], k2_fused),
+        k2_entry,
         _kernel_entry("dense_cg", "super_tpu_torch/csrc/dense_cg.cu",
                       "super_tpu/pallas_kernels/pcg.py:32",
                       solver_launches["dense_cg"], k3),

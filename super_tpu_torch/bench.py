@@ -12,16 +12,24 @@ association (``value``), the same with the per-iteration (moving-target)
 association (``per_iteration_hz``), the dense ED graph, mesh step 16
 (``dense_mesh16_hz``, unless ``--no_dense``), and the autograd
 Semantic-SuPer fit with the generator's two-class segmentations
-(``semantic_hz``).  Each alternates synthetic frames 1 and 2: ``n``
-frames from the frame-0 state converge the map (warm-up), then ``n``
-more are timed, with ``n`` the root bench's: ``reps``, ``max(6, reps //
-5)`` for the dense graph and ``max(6, reps // 3)`` for the semantic fit,
-never more than ``reps``.  The port has no device-resident frame loop yet, so the
-loop runs on the host with one synchronisation at the end (``"loop":
-"host"``).  The overflow counters' maxima over the timed frames ride along
-(``overflow``), so that a run which drops residuals cannot pass for a
-faster one.  The paths the port has not ported write an error key, as the
-root bench does.  On the card unless ``--cpu``.
+(``semantic_hz``), and the live path with monodepth2's depth in the loop
+(``e2e_depth_hz``, config.e2e_depth_workload_config).  Each alternates
+synthetic frames 1 and 2: ``n`` frames from the frame-0 state converge the
+map (warm-up), then ``n`` more are timed, with ``n`` the root bench's:
+``reps``, ``max(6, reps // 5)`` for the dense graph and ``max(6, reps //
+3)`` for the semantic fit and the live path, never more than ``reps``.
+The live path infers every frame's depth, frame 0's too.  The perception
+nets alone, with seeded random weights, as the root bench's
+``measure_perception`` runs them: ``depth_mono_hz`` (monodepth2 with the
+flip post-processing), ``depth_raft_hz`` (RAFT-Stereo, 32 GRU iterations)
+and ``seg_hz`` (DeepLabV3+, two classes), on a constant left image of 0.5
+(and a right one of 0.4), one warm-up call and then ``min(reps, 20)``
+calls (``max(4, that // 2)`` for RAFT-Stereo).  The port has no
+device-resident frame loop yet, so each loop runs on the host with one
+synchronisation at the end (``"loop": "host"``).  The overflow counters'
+maxima over the timed frames ride along (``overflow``), so that a run
+which drops residuals cannot pass for a faster one.  On the card unless
+``--cpu``.
 """
 
 from __future__ import annotations
@@ -36,13 +44,19 @@ import numpy as np
 import torch
 
 METRIC = "tracked frames/s per chip (full step: 10-iter LM + fusion)"
-NOT_PORTED = ("perception_error", "e2e_depth_error")
 OVERFLOW = (("tuple", "tuple_overflow"), ("pair", "pair_overflow"),
             ("add_deferred", "add_overflow"), ("free", "free_exhausted"))
 
 
+def _sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def measure_step(cfg, reps: int, device, seed: int = 0):
-    """(frames/s of the timed pass, overflow maxima over it)."""
+    """(frames/s of the timed pass, overflow maxima over it).  With a
+    ``depth_model`` in ``cfg`` each frame's depth comes from that net
+    (seeded random weights) on the card, inside the timed loop."""
     import super_tpu_torch  # noqa: F401  (TF32 off)
     from super_tpu_torch.core.preprocess import preprocess_frame
     from super_tpu_torch.core.tracker import init_tracker, track_step
@@ -54,40 +68,80 @@ def measure_step(cfg, reps: int, device, seed: int = 0):
     seq = generate(3, h, w, intr=intr, seed=seed,
                    num_classes=cfg.num_classes if semantic else 0)
     colors = np.ascontiguousarray(seq.colors.transpose(0, 3, 1, 2))
-    frames = [preprocess_frame(
-        cfg, intr, seq.depths[t], colors[t], float(t),
-        seg=seq.segs[t] if semantic else None,
-        seg_conf=seq.seg_confs[t] if semantic else None, device=device)
-        for t in range(3)]
+    if cfg.depth_model is None:
+        frames = [preprocess_frame(
+            cfg, intr, seq.depths[t], colors[t], float(t),
+            seg=seq.segs[t] if semantic else None,
+            seg_conf=seq.seg_confs[t] if semantic else None, device=device)
+            for t in range(3)]
+        frame_of = frames.__getitem__
+    else:
+        from super_tpu_torch.factory import build_models, predict_frame_inputs
 
-    def sync():
-        if torch.device(device).type == "cuda":
-            torch.cuda.synchronize(device)
+        models = build_models(cfg, seed=seed, device=device)
+        colors_dev = torch.as_tensor(colors, device=device)
+
+        def frame_of(t):
+            depth = predict_frame_inputs(cfg, models, colors_dev[t])["depth"]
+            return preprocess_frame(cfg, intr, depth, colors_dev[t],
+                                    float(t), device=device)
 
     def run(state):
         diag = None
         for i in range(reps):
-            state, outs = track_step(cfg, intr, state, frames[1 + i % 2])
+            state, outs = track_step(cfg, intr, state, frame_of(1 + i % 2))
             d = torch.stack([getattr(outs, n).to(torch.int64)
                              for _, n in OVERFLOW])
             diag = d if diag is None else torch.maximum(diag, d)
         return state, diag
 
-    state, _ = run(init_tracker(cfg, frames[0]))   # warm-up, converges
-    sync()
+    state, _ = run(init_tracker(cfg, frame_of(0)))   # warm-up, converges
+    _sync(device)
     tic = time.perf_counter()
     state, diag = run(state)
-    sync()
+    _sync(device)
     dt = time.perf_counter() - tic
     overflow = dict(zip((k for k, _ in OVERFLOW), diag.tolist()))
     return reps / dt, overflow
 
 
+def measure_perception(reps: int, device, height: int, width: int) -> dict:
+    """Calls per second of each perception net alone (the root bench's
+    ``measure_perception``)."""
+    from super_tpu_torch.config import SuPerConfig
+    from super_tpu_torch.factory import build_models, predict_frame_inputs
+
+    h, w = height, width
+    color = torch.full((3, h, w), 0.5, device=device)
+    right = torch.full((3, h, w), 0.4, device=device)
+    n = min(reps, 20)
+
+    def rate(cfg, calls, **kw):
+        models = build_models(cfg, device=device)
+        predict_frame_inputs(cfg, models, color, **kw)       # warm-up
+        _sync(device)
+        tic = time.perf_counter()
+        for _ in range(calls):
+            predict_frame_inputs(cfg, models, color, **kw)
+        _sync(device)
+        return round(calls / (time.perf_counter() - tic), 3)
+
+    return dict(
+        depth_mono_hz=rate(SuPerConfig(height=h, width=w,
+                                       depth_model="monodepth2_stereo",
+                                       post_process=True), n),
+        depth_raft_hz=rate(SuPerConfig(height=h, width=w,
+                                       depth_model="raft_stereo"),
+                           max(4, n // 2), right_color_chw=right),
+        seg_hz=rate(SuPerConfig(height=h, width=w, seg_model="deeplabv3+",
+                                num_classes=2), n))
+
+
 def measure(reps: int = 30, device="cuda", height: int = 480,
             width: int = 640, mesh_step: int = 30, dense: bool = True):
     """The JSON line's fields."""
-    from super_tpu_torch.config import lm_workload_config, \
-        semantic_workload_config
+    from super_tpu_torch.config import e2e_depth_workload_config, \
+        lm_workload_config, semantic_workload_config
 
     cfg = lm_workload_config(height, width, mesh_step)
     hz, overflow = measure_step(cfg, reps, device)
@@ -112,8 +166,12 @@ def measure(reps: int = 30, device="cuda", height: int = 480,
         min(reps, max(6, reps // 3)), device)
     out["semantic_hz"] = round(hz_s, 3)
     out["semantic_overflow"] = overflow_s
-    for key in NOT_PORTED:
-        out[key] = "NotImplementedError"
+    out.update(measure_perception(reps, device, height, width))
+    hz_e, overflow_e = measure_step(
+        e2e_depth_workload_config(height, width, mesh_step),
+        min(reps, max(6, reps // 3)), device)
+    out["e2e_depth_hz"] = round(hz_e, 3)
+    out["e2e_depth_overflow"] = overflow_e
     if torch.device(device).type == "cuda":
         out["device"] = torch.cuda.get_device_name(device)
         out["card"] = subprocess.run(

@@ -241,10 +241,20 @@ def semantic_workload_config(height: int = 480, width: int = 640,
             new_surfel_capacity=8192))
 
 
+def e2e_depth_workload_config(height: int = 480, width: int = 640,
+                              mesh_step: int = 30) -> SuPerConfig:
+    """The live path of the JAX package's bench (bench.py,
+    ``measure_e2e_depth``): the LM workload (the headline at mesh step 30)
+    with its depth inferred each frame by monodepth2 with the flip
+    post-processing."""
+    return lm_workload_config(height, width, mesh_step).replace(
+        depth_model="monodepth2_stereo", post_process=True)
+
+
 # The named paths of the tracking step at 480 x 640 that chip_smoke.py and
 # profile_step.py drive.
 WORKLOADS = ("lm", "dense16", "pcg_pallas", "cholesky", "pcg",
-             "per_iteration", "semantic")
+             "per_iteration", "semantic", "e2e_depth")
 
 
 def workload_config(name: str) -> SuPerConfig:
@@ -254,11 +264,14 @@ def workload_config(name: str) -> SuPerConfig:
     that dense-matrix solver; ``per_iteration``, the headline with the
     moving-target association (the JAX bench's ``per_iteration_hz``);
     ``semantic``, the autograd Semantic-SuPer fit (the JAX bench's
-    ``semantic_hz``)."""
+    ``semantic_hz``); ``e2e_depth``, the headline with monodepth2's depth
+    (the JAX bench's ``e2e_depth_hz``)."""
     if name not in WORKLOADS:
         raise ValueError(f"unknown workload {name!r}; one of {WORKLOADS}")
     if name == "semantic":
         return semantic_workload_config(480, 640)
+    if name == "e2e_depth":
+        return e2e_depth_workload_config(480, 640)
     cfg = lm_workload_config(480, 640, 16 if name == "dense16" else 30)
     if name == "per_iteration":
         cfg = cfg.replace(solver=dataclasses.replace(

@@ -6,8 +6,11 @@ transform T_g, is fit by SGD (momentum 0.9) or Adam on the autograd faces
 of the losses: point-plane ICP with hard or soft semantic weights,
 knn_w-weighted ARAP, the rotation term over every row, triangle-area
 preservation, and the semantic boundary-morph and render terms
-(core/semantic.py).  The T_g row's gradient is divided by the number of
-active nodes before each step.
+(core/semantic.py), and the optical-flow correspondence term (``sf_corr``)
+with the flow of the flow net in ``models``: once a frame from the
+previous frame's colour, or (``sf_corr_match_renderimg``) at every
+evaluation from the soft render.  The T_g row's gradient is divided by
+the number of active nodes before each step.
 
 Every sum of the backward pass that adds into shared rows goes through the
 fixed-order segment sum, so the fit repeats bit for bit on the card: the
@@ -70,14 +73,14 @@ class AutogradContext(NamedTuple):
 
 
 def prepare_autograd(cfg: SuPerConfig, surfels: SurfelState,
-                     graph: GraphState, frame: FrameData) -> AutogradContext:
+                     graph: GraphState, frame: FrameData, flow=None,
+                     intr: Optional[Intrinsics] = None) -> AutogradContext:
     """The LM context of the tuple layout (the surfels in padded tuple-
     sorted slots, so the per-surfel classes and colours are permuted with
-    it), the semantic extras and the gradient sums' plans."""
+    it), the semantic extras and the gradient sums' plans.  A per-frame
+    ``flow`` (2, H, W) goes into the extras with the surfels' source
+    projections under ``intr``, the anchors of its corr match."""
     losses = cfg.losses
-    if losses.sf_corr:
-        raise NotImplementedError(
-            "sf_corr needs the optical-flow network, which is not ported")
     base = prepare_lm(cfg, surfels, graph, frame)
     layout = base.layout
     ebank = torch.cat([surfels.seg.to(surfels.points.dtype)[None],
@@ -86,10 +89,14 @@ def prepare_autograd(cfg: SuPerConfig, surfels: SurfelState,
     c = surfels.seg_conf.shape[0]
     h, w = cfg.height, cfg.width
     extras = None
-    if losses.sf_bn_morph or losses.render_loss:
+    if losses.sf_bn_morph or losses.render_loss or losses.sf_corr:
+        src_uv = None
+        if flow is not None:
+            v0, u0, _, _ = project_points(base.sf_points, intr, h, w)
+            src_uv = torch.stack([u0, v0])
         extras = sem.build_semantic_extras(
             cfg, frame.seg.reshape(h, w), frame.seg_conf.reshape(-1, h, w),
-            frame.color_image)
+            frame.color_image, flow=flow, src_uv=src_uv)
     bank_zx = None
     if losses.sf_hard_seg_point_plane or losses.sf_soft_seg_point_plane:
         bank_zx = build_corner_bank_zx(frame.points, frame.norms,
@@ -239,14 +246,18 @@ def face_autograd(graph: GraphState, ctx: AutogradContext, deform):
 
 
 def autograd_total(cfg: SuPerConfig, ctx: AutogradContext,
-                   graph: GraphState, deform, intr: Intrinsics
+                   graph: GraphState, deform, intr: Intrinsics,
+                   flow_fn=None
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Sum of the enabled autograd losses, and each weighted face."""
+    """Sum of the enabled autograd losses, and each weighted face.
+    ``flow_fn``: (3, H, W) render -> (2, H, W) flow; when given, the corr
+    term takes the flow of the current soft render instead of the
+    context's per-frame flow."""
     losses = cfg.losses
     parts = {}
     seg_icp = losses.sf_hard_seg_point_plane or losses.sf_soft_seg_point_plane
     need_warp = (losses.sf_point_plane or seg_icp or losses.sf_bn_morph
-                 or losses.render_loss)
+                 or losses.render_loss or losses.sf_corr)
     warped = _warp_all(cfg, ctx, deform) if need_warp else None
     if losses.sf_point_plane or seg_icp:
         parts["point_plane"] = losses.sf_point_plane_weight * \
@@ -264,11 +275,21 @@ def autograd_total(cfg: SuPerConfig, ctx: AutogradContext,
         if losses.sf_bn_morph:
             parts["bn_morph"] = losses.sf_bn_morph_weight * sem.bn_morph_loss(
                 cfg, ctx.extras, warped, ctx.sf_seg, ctx.base.sf_mask, intr)
-        if losses.render_loss:
+        if losses.render_loss or (losses.sf_corr and flow_fn is not None):
             rendered = render_soft(warped, ctx.sf_colors, ctx.base.sf_mask,
                                    intr, cfg.height, cfg.width)
+        if losses.render_loss:
             parts["render"] = losses.render_loss_weight * sem.render_loss(
                 cfg, ctx.extras, rendered)
+        if losses.sf_corr:
+            extras = ctx.extras
+            if flow_fn is not None:
+                extras = extras._replace(flow=flow_fn(rendered))
+            base = ctx.base
+            parts["corr"] = losses.sf_corr_weight * sem.corr_loss(
+                cfg, extras, warped, base.trg_points, base.trg_norms,
+                base.trg_index_map, base.sf_mask, intr,
+                loss_type=losses.sf_corr_loss_type)
     total = deform.new_zeros(())
     for part in parts.values():
         total = total + part
@@ -276,7 +297,8 @@ def autograd_total(cfg: SuPerConfig, ctx: AutogradContext,
 
 
 def graph_fit(cfg: SuPerConfig, surfels: SurfelState, graph: GraphState,
-              frame: FrameData, intr: Intrinsics):
+              frame: FrameData, intr: Intrinsics, models=None,
+              prev_color=None):
     """Fit the deformation: (deform (J+1, 7), the loss of the last
     evaluation, made before the last step).
 
@@ -284,10 +306,30 @@ def graph_fit(cfg: SuPerConfig, surfels: SurfelState, graph: GraphState,
     ``torch.optim.Adam`` from the identity, each on the gradient of
     :func:`autograd_total` with the T_g row's divided by the active node
     count.  A fixed number of steps and no host read: the step never waits
-    for the card."""
+    for the card.
+
+    With ``sf_corr`` and a flow net in ``models`` (factory.Models), the
+    flow is inferred once from ``prev_color`` (3, H, W) to the frame's
+    colour, or with ``sf_corr_match_renderimg`` at every evaluation from
+    the soft render; either way under ``torch.no_grad`` (the flow carries
+    no gradient, and the render that feeds it does)."""
     sol = cfg.solver
+    losses = cfg.losses
+    flow0 = flow_fn = None
+    flow_model = getattr(models, "flow_model", None)
+    if losses.sf_corr and flow_model is not None:
+        def infer(src, trg):
+            with torch.no_grad(), record_function("graph_fit.flow"):
+                return flow_model(src[None], trg[None])[0]
+
+        if losses.sf_corr_match_renderimg:
+            flow_fn = lambda rendered: infer(  # noqa: E731
+                rendered, frame.color_image)
+        elif prev_color is not None:
+            flow0 = infer(prev_color, frame.color_image)
     with record_function("graph_fit.prepare"):
-        ctx = prepare_autograd(cfg, surfels, graph, frame)
+        ctx = prepare_autograd(cfg, surfels, graph, frame, flow=flow0,
+                               intr=intr)
     dev = surfels.points.device
     # The identity, made on the device (a copy from host memory would wait
     # for the card).
@@ -305,7 +347,8 @@ def graph_fit(cfg: SuPerConfig, surfels: SurfelState, graph: GraphState,
     for _ in range(sol.num_iterations):
         opt.zero_grad(set_to_none=True)
         with record_function("graph_fit.loss"):
-            loss = autograd_total(cfg, ctx, graph, deform, intr)[0]
+            loss = autograd_total(cfg, ctx, graph, deform, intr,
+                                  flow_fn=flow_fn)[0]
         with record_function("graph_fit.backward"):
             loss.backward()
         with record_function("graph_fit.step"):

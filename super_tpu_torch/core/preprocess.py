@@ -211,6 +211,10 @@ def preprocess_frame(cfg: SuPerConfig, intr: Intrinsics, depth, color, time,
         seg=seg_flat,
         seg_conf=seg_conf_flat,
         dist2edge=dist2edge,
-        time=torch.as_tensor(time, dtype=torch.float32, device=dev),
+        # A number is filled in on the device: a copy from host memory
+        # would wait for the card.
+        time=(torch.as_tensor(time, dtype=torch.float32, device=dev)
+              if isinstance(time, torch.Tensor) else
+              torch.full((), time, dtype=torch.float32, device=dev)),
         color_image=color,
     )

@@ -92,8 +92,11 @@ class StepOutputs(NamedTuple):
 
 
 def track_step(cfg: SuPerConfig, intr: Intrinsics, state: TrackerState,
-               frame: FrameData) -> Tuple[TrackerState, StepOutputs]:
-    """One frame: solve the warp, apply it, fuse, prune, reproject."""
+               frame: FrameData, models=None,
+               prev_color=None) -> Tuple[TrackerState, StepOutputs]:
+    """One frame: solve the warp, apply it, fuse, prune, reproject.
+    ``models`` (factory.Models) and ``prev_color`` (3, H, W) feed the flow
+    of the autograd fit's ``sf_corr`` term (core/optimizer.py:graph_fit)."""
     if cfg.solver.use_derived_gradient:
         with record_function("step.prepare_lm"):
             ctx = prepare_lm(cfg, state.surfels, state.graph, frame)
@@ -108,7 +111,8 @@ def track_step(cfg: SuPerConfig, intr: Intrinsics, state: TrackerState,
     else:
         with record_function("step.graph_fit"):
             deform, cost = graph_fit(cfg, state.surfels, state.graph, frame,
-                                     intr)
+                                     intr, models=models,
+                                     prev_color=prev_color)
         with record_function("step.apply_deformation"):
             surfels, graph = apply_deformation(cfg, state.surfels,
                                                state.graph, deform[:-1],

@@ -204,6 +204,19 @@ def bilinear_sample_indexed(features_fm, index_map, v, u):
     return values, torch.all(corner_valid, dim=1)
 
 
+def bilinear_sample_image(image_fm, v, u):
+    """Bilinear sample of a dense (F, H, W) image at (v, u), its corners
+    clamped into the image: ((N, F) values, (N,) in-image mask)."""
+    f, h, w = image_fm.shape
+    n_blk, m_blk, ni, mi, _ = _index_corners(v, u, h, w)
+    g = image_fm.reshape(f, h * w)[:, ni * w + mi].permute(1, 2, 0)
+    wn = tent(n_blk - v[:, None])
+    wm = tent(m_blk - u[:, None])
+    values = torch.sum(g * (wn * wm)[..., None], dim=1)
+    in_bounds = (v >= 0) & (v <= h - 1) & (u >= 0) & (u <= w - 1)
+    return values, in_bounds
+
+
 def build_corner_bank_image(image_fm):
     """(F, H, W) image -> (4F, H*W) bank: row block c holds corner c of the
     bilinear stencil anchored at each pixel, edge-replicated (the clamped

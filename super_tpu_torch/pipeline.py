@@ -11,10 +11,12 @@ frame, for the frame's time, as the JAX package's ``block_until_ready``
 does.
 
 Given segmentations (``segs``, ``seg_confs``) go into each frame's
-preprocessing, as the semantic configurations need.  Not ported yet: the
-logger, render and checkpoint hooks, depth and segmentation from models,
-and the optical-flow step of ``sf_corr``; each raises
-``NotImplementedError`` when asked for.
+preprocessing, as the semantic configurations need.  Without given depths
+the perception nets of ``models`` (factory.py) infer each frame's depth,
+and its segmentation where the config has a segmentation net; with
+``sf_corr`` and a flow net, each step's fit takes the flow from the
+previous frame's colour.  Not ported yet: the logger, render and
+checkpoint hooks, which raise ``NotImplementedError`` when asked for.
 """
 
 from __future__ import annotations
@@ -40,6 +42,14 @@ OVERFLOW_COUNTERS = ("tuple_overflow", "pair_overflow", "proj_overflow",
                      "add_overflow", "free_exhausted", "dup_skipped")
 
 
+def _chw(image) -> np.ndarray:
+    """One (H, W, 3) or (3, H, W) image as contiguous (3, H, W) numpy."""
+    image = np.asarray(image)
+    if image.shape[-1] == 3:
+        image = image.transpose(2, 0, 1)
+    return np.ascontiguousarray(image)
+
+
 class SuPerPipeline:
     """Single-stream tracking pipeline on ``device`` (the card unless the
     caller asks for the CPU)."""
@@ -58,38 +68,60 @@ class SuPerPipeline:
         self.errors: Dict[int, np.ndarray] = {}
         self.frame_times = []
         self.overflow_totals: Dict[str, int] = {}
+        self._prev_color = None   # (3, H, W): the source of the sf_corr flow
 
     def run(self, depths, colors, gt_xy=None, gt_valid=None, segs=None,
             seg_confs=None, right_colors=None, models=None,
             verbose: bool = False):
         """Track a whole sequence.
 
-        depths: (T, H, W) numpy; colors: (T, H, W, 3) or (T, 3, H, W)
-        numpy; gt_xy: optional (T, P, 2) GT screen coordinates, gt_valid
-        (T, P) bool; segs: optional (T, H, W) class labels, seg_confs
-        (T, C, H, W) class scores.  Returns the summary metrics.
+        depths: (T, H, W) numpy, or None to infer depth with ``models``
+        (factory.Models); colors: (T, H, W, 3) or (T, 3, H, W) numpy, and
+        right_colors the right images for RAFT-Stereo depth; gt_xy:
+        optional (T, P, 2) GT screen coordinates, gt_valid (T, P) bool;
+        segs: optional (T, H, W) class labels, seg_confs (T, C, H, W)
+        class scores (else a segmentation net's, where ``models`` has
+        one).  Returns the summary metrics.
         """
-        if depths is None or models is not None or right_colors is not None:
-            raise NotImplementedError(
-                "depth from models (and stereo) is not ported; pass depths")
+        if depths is None and models is None:
+            raise ValueError("run needs depths, or models to infer them "
+                             "(factory.build_models)")
         cfg, dev = self.cfg, self.device
+        sf_corr_flow = (models is not None and cfg.losses.sf_corr
+                        and models.flow_model is not None)
         for t in range(len(colors)):
             tic = _time.perf_counter()
-            color = np.asarray(colors[t])
-            if color.shape[-1] == 3:  # HWC -> CHW
-                color = color.transpose(2, 0, 1)
-            frame = preprocess_frame(
-                cfg, self.intr, np.asarray(depths[t]),
-                np.ascontiguousarray(color), float(t),
-                seg=None if segs is None else np.asarray(segs[t]),
-                seg_conf=None if seg_confs is None else np.asarray(
-                    seg_confs[t]), device=dev)
+            color = _chw(colors[t])
+            seg = None if segs is None else np.asarray(segs[t])
+            seg_conf = None if seg_confs is None else np.asarray(seg_confs[t])
+            if depths is not None:
+                depth = np.asarray(depths[t])
+            else:
+                from super_tpu_torch.factory import predict_frame_inputs
+
+                pred = predict_frame_inputs(
+                    cfg, models, color, right_color_chw=None
+                    if right_colors is None else _chw(right_colors[t]))
+                depth = pred["depth"]
+                if "seg" in pred and seg is None:
+                    seg, seg_conf = pred["seg"], pred["seg_conf"]
+            frame = preprocess_frame(cfg, self.intr, depth, color, float(t),
+                                     seg=seg, seg_conf=seg_conf, device=dev)
             outs = None
             if self.state is None:
                 self.state = init_tracker(cfg, frame)
+            elif sf_corr_flow:
+                # The flow's source is the previous frame (the frame's own
+                # colour, zero flow, when the state came from elsewhere).
+                prev = (frame.color_image if self._prev_color is None
+                        else self._prev_color)
+                self.state, outs = track_step(cfg, self.intr, self.state,
+                                              frame, models=models,
+                                              prev_color=prev)
             else:
                 self.state, outs = track_step(cfg, self.intr, self.state,
                                               frame)
+            self._prev_color = frame.color_image
             if gt_xy is not None:
                 self._eval_frame(t, frame, gt_xy[t], gt_valid[t])
             if dev.type == "cuda":

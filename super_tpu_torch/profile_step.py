@@ -10,7 +10,10 @@ Runs a path of the tracking step at 480 x 640 (config.workload_config):
 dense-matrix solver (K3 for ``pcg_pallas``); ``per_iteration``, the
 headline with the moving-target association (K1, K2's memory form);
 ``semantic``, the autograd Semantic-SuPer fit (Adam, 10 steps) on frames
-with the generator's two-class segmentations.
+with the generator's two-class segmentations; ``e2e_depth``, the headline
+with each frame's depth inferred by monodepth2 (seeded random weights,
+flip post-processing) under a ``perception.depth`` range, then
+preprocessed under ``step.preprocess``.
 Frame 0 initialises, one frame warms up, one runs under CUDA's sync debug
 mode to find any host sync in the step, then ``--frames`` frames run with
 tracing off, each timed on the host clock around a synchronised step, and
@@ -40,6 +43,7 @@ import warnings
 import numpy as np
 import torch
 from torch.autograd import DeviceType
+from torch.profiler import record_function
 
 import super_tpu_torch  # noqa: F401  (TF32 off)
 from super_tpu_torch.config import WORKLOADS, workload_config
@@ -47,16 +51,18 @@ from super_tpu_torch.core.preprocess import preprocess_frame
 from super_tpu_torch.core.tracker import init_tracker, track_step
 from super_tpu_torch.data.synthetic import default_intrinsics, generate
 
-RANGES = ("step.prepare_lm", "step.lm_solve", "step.graph_fit",
-          "step.apply_deformation", "step.fuse_frame", "step.prune",
+RANGES = ("perception.depth", "step.preprocess", "step.prepare_lm",
+          "step.lm_solve", "step.graph_fit", "step.apply_deformation",
+          "step.fuse_frame", "step.prune",
           "lm.associate", "lm.assemble", "lm.solve", "lm.final_cost",
           "graph_fit.prepare", "graph_fit.loss", "graph_fit.backward",
           "graph_fit.step")
 
 
-def _count_syncs(cfg, intr, state, frame):
-    """One step under CUDA's sync debug mode: where it waits for the card
-    (the innermost frames of this package, for each synchronising call)."""
+def _count_syncs(step, state):
+    """One ``step(state)`` under CUDA's sync debug mode: where it waits for
+    the card (the innermost frames of this package, for each synchronising
+    call)."""
     sites = []
 
     def hook(message, category, filename, lineno, file=None, line=None):
@@ -72,7 +78,7 @@ def _count_syncs(cfg, intr, state, frame):
         torch.cuda.set_sync_debug_mode("warn")   # (itself warns once)
         warnings.showwarning = hook
         try:
-            state, _ = track_step(cfg, intr, state, frame)
+            state, _ = step(state)
         finally:
             torch.cuda.set_sync_debug_mode("default")
     return state, sites
@@ -98,20 +104,39 @@ def main():
     seq = generate(n, cfg.height, cfg.width, intr=intr, seed=args.seed,
                    num_classes=cfg.num_classes if semantic else 0)
     colors = np.ascontiguousarray(seq.colors.transpose(0, 3, 1, 2))
-    frames = [preprocess_frame(
-        cfg, intr, seq.depths[t], colors[t], float(t),
-        seg=seq.segs[t] if semantic else None,
-        seg_conf=seq.seg_confs[t] if semantic else None, device=dev)
-        for t in range(n)]
-    state = init_tracker(cfg, frames[0])
-    state, _ = track_step(cfg, intr, state, frames[1])      # warm-up
-    state, syncs = _count_syncs(cfg, intr, state, frames[2])
+    if cfg.depth_model is None:
+        frames = [preprocess_frame(
+            cfg, intr, seq.depths[t], colors[t], float(t),
+            seg=seq.segs[t] if semantic else None,
+            seg_conf=seq.seg_confs[t] if semantic else None, device=dev)
+            for t in range(n)]
+        frame_of = frames.__getitem__
+    else:
+        from super_tpu_torch.factory import build_models, predict_frame_inputs
+
+        models = build_models(cfg, seed=args.seed, device=dev)
+        colors_dev = torch.as_tensor(colors, device=dev)
+
+        def frame_of(t):
+            with record_function("perception.depth"):
+                depth = predict_frame_inputs(cfg, models,
+                                             colors_dev[t])["depth"]
+            with record_function("step.preprocess"):
+                return preprocess_frame(cfg, intr, depth, colors_dev[t],
+                                        float(t), device=dev)
+
+    def step(state, t):
+        return track_step(cfg, intr, state, frame_of(t))
+
+    state = init_tracker(cfg, frame_of(0))
+    state, _ = step(state, 1)                                 # warm-up
+    state, syncs = _count_syncs(lambda st: step(st, 2), state)
 
     untraced = []
-    for f in frames[3:3 + args.frames]:
+    for t in range(3, 3 + args.frames):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, _ = track_step(cfg, intr, state, f)
+        state, _ = step(state, t)
         torch.cuda.synchronize()
         untraced.append((time.perf_counter() - t0) * 1e3)
 
@@ -120,8 +145,8 @@ def main():
     with torch.profiler.profile(activities=acts) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for f in frames[3 + args.frames:]:
-            state, _ = track_step(cfg, intr, state, f)
+        for t in range(3 + args.frames, n):
+            state, _ = step(state, t)
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - t0) * 1e3
 

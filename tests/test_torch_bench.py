@@ -1,7 +1,7 @@
 """The port's bench (python -m super_tpu_torch.bench) on the CPU at 48 x 64:
 one JSON line with the root bench's keys (bench.py's last print), the
-per-iteration, dense and semantic entries, and an error key for each path
-the port has not ported."""
+per-iteration, dense and semantic entries, the perception nets' rates and
+the live path with monodepth2's depth, and no error key."""
 
 import json
 import sys
@@ -25,9 +25,11 @@ def test_bench_prints_the_root_keys(capsys, monkeypatch):
     for key in ROOT_KEYS + ("per_iteration_hz", "dense_mesh16_hz",
                             "semantic_hz"):
         assert key in out, key
-    for key in ("perception_error", "e2e_depth_error"):
-        assert out[key] == "NotImplementedError"
-    assert "semantic_error" not in out
+    for key in ("depth_mono_hz", "depth_raft_hz", "seg_hz", "e2e_depth_hz"):
+        assert out[key] > 0, key
+    assert not [k for k in out if k.endswith("_error")]
+    assert set(out["e2e_depth_overflow"]) == {"tuple", "pair",
+                                              "add_deferred", "free"}
     assert out["unit"] == "frames/s/chip" and out["streams"] == 1
     assert out["loop"] == "host" and out["device"] == "cpu"
     for key in ("value", "per_iteration_hz", "dense_mesh16_hz",

@@ -146,9 +146,11 @@ def test_lm_workload_config_matches_bench(monkeypatch, mesh_step):
         assert tpcg.uses_chunked(cap.node_capacity, sol.assembly_pair_cap)
 
 
-# The LM paths; "semantic" is held to the bench's semantic branch in
-# tests/test_torch_autograd.py.
-@pytest.mark.parametrize("name", [w for w in WORKLOADS if w != "semantic"])
+# The LM paths with given depth; "semantic" is held to the bench's semantic
+# branch in tests/test_torch_autograd.py, "e2e_depth" to its
+# measure_e2e_depth in tests/test_torch_perception_pipeline.py.
+@pytest.mark.parametrize("name", [w for w in WORKLOADS
+                                  if w not in ("semantic", "e2e_depth")])
 def test_workload_config_names_bench_paths(monkeypatch, name):
     """Each named path of chip_smoke.py and profile_step.py is the bench's
     workload (mesh step 16 for dense16, else 30) with only linear_solver

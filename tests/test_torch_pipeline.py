@@ -108,16 +108,15 @@ def test_tracking_bounds(runs, name):
 
 
 def test_unported_hooks_raise():
+    """The logger and checkpoint hooks raise; depth from the perception
+    nets is ported (test_torch_perception_pipeline.py), and a run with
+    neither depths nor nets raises."""
     cfg = port_config(_config("per_frame"))
     intr = tintr(H, W, device="cpu")
     with pytest.raises(NotImplementedError):
         TSuPerPipeline(cfg, intr, logdir="x", device="cpu")
+    with pytest.raises(NotImplementedError):
+        TSuPerPipeline(cfg, intr, checkpoint_dir="x", device="cpu")
     pipe = TSuPerPipeline(cfg, intr, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         pipe.run(None, np.zeros((1, H, W, 3), np.float32))
-    # Given segmentations are ported (test_torch_semantic_pipeline.py);
-    # depth from stereo pairs is not.
-    with pytest.raises(NotImplementedError):
-        pipe.run(np.zeros((1, H, W), np.float32),
-                 np.zeros((1, H, W, 3), np.float32),
-                 right_colors=np.zeros((1, H, W, 3), np.float32))

@@ -7,6 +7,7 @@ so everything handed to the JAX side is float32 explicitly.
 """
 
 import dataclasses
+import re
 
 import jax
 import jax.numpy as jnp
@@ -145,3 +146,80 @@ def close(ref, got, atol, rtol=0.0, name=""):
     else:
         np.testing.assert_allclose(b.astype(np.float64), a.astype(np.float64),
                                    atol=atol, rtol=rtol, err_msg=name)
+
+
+# The perception nets' tolerances (largest error over the output's largest
+# magnitude): the feed-forward nets, and the recurrent RAFTs (the JAX
+# package's own RAFT parity tolerance, tests/test_raft_parity.py).
+NET_TOL = 1e-4
+RAFT_TOL = 1e-3
+
+
+def seeded(model, seed=0):
+    """A port model with seeded random weights and random batch-norm
+    statistics (super_tpu_torch.models.init_random)."""
+    from super_tpu_torch.models import init_random
+
+    return init_random(model, torch.Generator().manual_seed(seed))
+
+
+def image(seed, n=1, h=64, w=96):
+    """(n, 3, h, w) float32 numpy image in [0, 1]."""
+    return np.random.RandomState(seed).rand(n, 3, h, w).astype(np.float32)
+
+
+def nhwc(x):
+    """An NCHW numpy image as the JAX models' NHWC array."""
+    return jnp.asarray(np.ascontiguousarray(np.asarray(x).transpose(
+        0, 2, 3, 1)))
+
+
+def scaled_err(ref, got):
+    """max |got - ref| / max |ref|."""
+    a = np.asarray(ref, np.float64)
+    b = (got.detach().cpu().numpy() if isinstance(got, torch.Tensor)
+         else np.asarray(got)).astype(np.float64)
+    assert a.shape == b.shape, (a.shape, b.shape)
+    return float(np.max(np.abs(a - b)) / (np.max(np.abs(a)) + 1e-12))
+
+
+def to_torchvision_raft(sd):
+    """The port's (original RAFT) state dict in torchvision's raft_large
+    key layout: the inverse of torchvision_raft_keys (each downsample
+    norm once, under downsample.1)."""
+    out = {}
+    for k, v in sd.items():
+        nk = re.sub(r"^fnet\.", "feature_encoder.", k)
+        nk = re.sub(r"^cnet\.", "context_encoder.", nk)
+        if nk.startswith(("feature_encoder.", "context_encoder.")):
+            if ".norm3." in nk:
+                continue
+            nk = re.sub(r"^(\w+)\.conv1\.", r"\1.convnormrelu.0.", nk)
+            nk = re.sub(r"^(\w+)\.norm1\.", r"\1.convnormrelu.1.", nk)
+            nk = re.sub(r"^(\w+)\.conv2\.", r"\1.conv.", nk)
+            for a, b in ((".conv1.", ".convnormrelu1.0."),
+                         (".norm1.", ".convnormrelu1.1."),
+                         (".conv2.", ".convnormrelu2.0."),
+                         (".norm2.", ".convnormrelu2.1.")):
+                nk = nk.replace(a, b)
+        nk = re.sub(r"^update_block\.encoder\.conv([cf])([12])\.",
+                    lambda m: "update_block.motion_encoder.conv%s%s.0." % (
+                        {"c": "corr", "f": "flow"}[m.group(1)], m.group(2)),
+                    nk)
+        nk = nk.replace("update_block.encoder.conv.",
+                        "update_block.motion_encoder.conv.0.")
+        nk = re.sub(r"^update_block\.gru\.conv([zrq])([12])\.",
+                    r"update_block.recurrent_block.convgru\g<2>.conv\g<1>.",
+                    nk)
+        nk = nk.replace("update_block.mask.0.", "mask_predictor.convrelu.0.")
+        nk = nk.replace("update_block.mask.2.", "mask_predictor.conv.")
+        out[nk] = v
+    return out
+
+
+def save_checkpoint(path, sd, **extra):
+    """``sd`` saved as a reference checkpoint: wrapped in ``state_dict``
+    with DataParallel's ``module.`` prefix, plus ``extra`` entries."""
+    torch.save({"state_dict": dict({"module." + k: v for k, v in sd.items()},
+                                   **extra)}, path)
+    return str(path)
