@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Smoke check of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent-segsum PATH]
 
 Builds the port's hand-written CUDA kernels from super_tpu_torch/csrc, holds
 each against its plain PyTorch version on the card at the shapes of the
@@ -53,7 +53,18 @@ plain version's), J = 15 (``k3_small``, dim 105: rows not 16-byte aligned,
 fewer rows than SMs), the dense graph's J = 1216 (``k3_dense``, dim 8512) and
 the ``pcg_pallas`` path's own frame-1 system (``path_pcg_pallas``).  The
 segment sum is checked on each sum of the headline's, the dense graph's
-and the pcg_pallas path's frame-1 assembly (``segsum``).  ``repeat``
+and the pcg_pallas path's frame-1 assembly (``segsum``), and on its edge
+cases at full size (``segsum_cases``: one segment of every row, the soft
+splat's shape with half its rows in one pixel, every row its own segment,
+segments on tile edges, ids outside [0, S), a million mostly empty
+segments, fewer rows than a tile; widths 1, 4, 7 and 49, with base and
+bf16; exact against an f64 ``index_add_`` on integer values, within 1e-6
+of the largest sum on normal values, bitwise across launches).  With
+``--parent-segsum PATH`` (an earlier tree's ``csrc/segment_sum.cu`` with
+the same C interface as the two-launch kernel that took a chunk-totals
+scratch, e.g. from ``git show``) that source is
+built with the same nvcc line in a temporary directory and timed beside
+the kernel on every segment-sum shape.  ``repeat``
 tracks 5 headline frames twice with the GT points bound and requires both
 to agree bit for bit; ``pipeline`` runs SuPerPipeline on 30 frames with
 ground truth for five configurations, the per-iteration one also with
@@ -177,16 +188,80 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def phase_build():
+def phase_build(parent_segsum=None):
+    """Builds the kernels, and with ``parent_segsum`` (an earlier tree's
+    csrc/segment_sum.cu, the two-launch kernel with a chunk-totals
+    scratch) that source too, with the same nvcc line, in a temporary
+    directory outside the checkout; the parent is loaded into
+    PARENT_SEGSUM for timing beside the kernel."""
+    import ctypes
+    import tempfile
+
     from super_tpu_torch.kernels import build
 
     t0 = time.perf_counter()
-    logs = build.build(SOURCES)   # one nvcc per source, all at once
+    with tempfile.TemporaryDirectory(prefix="segsum_parent_") as tmp:
+        parent = None
+        if parent_segsum is not None:
+            so = f"{tmp}/segment_sum_parent.so"
+            parent = subprocess.Popen(
+                [build._nvcc(), *build.NVCC_FLAGS, "-o", so, parent_segsum],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        logs = build.build(SOURCES)   # one nvcc per source, all at once
+        if parent is not None:
+            log, _ = parent.communicate()
+            if parent.returncode != 0:
+                raise RuntimeError(f"parent segment_sum build failed:\n{log}")
+            logs["segment_sum_parent"] = log
+            lib = ctypes.CDLL(so)
+            vp, ci = ctypes.c_void_p, ctypes.c_int
+            lib.segment_sum_launch.argtypes = [vp] * 6 + [ci] * 4 + [vp]
+            lib.segment_sum_launch.restype = ci
+            PARENT_SEGSUM["lib"] = lib
     ptxas = {name: [ln.strip() for ln in log.splitlines()
                     if "registers" in ln or "spill" in ln]
              for name, log in logs.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "arch": "sm_90a", "ptxas": ptxas})
+          "arch": "sm_90a", "ptxas": ptxas, "parent_segsum": parent_segsum})
+
+
+# The parent tree's segment-sum library, where chip_smoke.py is given one
+# (--parent-segsum); timed beside the kernel on every segment-sum shape.
+PARENT_SEGSUM = {}
+
+
+def _parent_sum(values, plan, kw):
+    """The parent's two-launch kernel on the same sum: its 64-row chunk
+    totals, then the segments."""
+    r, s_ = values.shape[0], plan.num_segments
+    f = values.numel() // r
+    base = kw.get("base")
+    out = torch.empty((s_,) + tuple(values.shape[1:]), dtype=torch.float32,
+                      device=values.device)
+    chunks = torch.empty(((r + 63) // 64 * f,), dtype=torch.float32,
+                         device=values.device)
+    rc = PARENT_SEGSUM["lib"].segment_sum_launch(
+        values.data_ptr(), plan.order.data_ptr(), plan.offsets.data_ptr(),
+        None if base is None else base.data_ptr(), out.data_ptr(),
+        chunks.data_ptr(), r, s_, f, int(kw.get("sum_dtype") == "bf16"),
+        torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"parent segment_sum launch failed: cudaError {rc}")
+    return out
+
+
+def _parent_times(values, plan, kw, out):
+    """The parent kernel's time and device time alone on the same sum, and
+    its largest difference from ``out`` (nulls without a parent)."""
+    if "lib" not in PARENT_SEGSUM:
+        return dict(parent_ms=None, parent_ms_device=None,
+                    parent_max_abs_diff=None)
+    diff = float(torch.max(torch.abs(_parent_sum(values, plan, kw) - out)))
+    return dict(
+        parent_ms=cuda_ms(lambda: _parent_sum(values, plan, kw), reps=20),
+        parent_ms_device=cuda_ms(lambda: _parent_sum(values, plan, kw),
+                                 reps=20, queued=True),
+        parent_max_abs_diff=diff)
 
 
 def _pair_matrix(layout, acc, u, j, dev):
@@ -1030,6 +1105,17 @@ def phase_segsum(dev, path, cfg, ctx, assoc, intr, only=None):
             for name, (values, plan, kw) in cases}
 
 
+def _segsum_bound(values, plan, kw):
+    """(bound ms, what bounds it, bytes) of one segment sum: the rows, the
+    order, the offsets and out (with base, base too) each moved once; one
+    add an entry."""
+    r, s_ = values.shape[0], plan.num_segments
+    f = values.numel() // r
+    nbytes = (values.numel() + r + s_ + 1
+              + s_ * f * (2 if kw.get("base") is not None else 1)) * 4
+    return bound(nbytes, values.numel()) + (nbytes,)
+
+
 def _segsum_check(path, name, values, plan, kw):
     """One sum by the kernel against its plain version: max abs error <=
     1e-6 of the largest sum, two launches bitwise equal; the kernel's time,
@@ -1055,26 +1141,162 @@ def _segsum_check(path, name, values, plan, kw):
     library_ms = cuda_ms(lambda: acc.index_add_(0, plan.ids, values),
                          reps=20)
     r, s_ = values.shape[0], plan.num_segments
-    base = kw.get("base") is not None
-    nbytes = (values.numel() + r + s_ + 1
-              + out_p.numel() * (2 if base else 1)) * 4
-    b_ms, b_by = bound(nbytes, values.numel())
+    b_ms, b_by, nbytes = _segsum_bound(values, plan, kw)
     seg_len = torch.diff(plan.offsets)
     rec = dict(phase="segsum", path=path, sum=name, rows=r, segments=s_,
                width=values.numel() // r, sum_dtype=kw.get("sum_dtype"),
-               base=base, longest_segment=int(seg_len.max()),
+               base=kw.get("base") is not None,
+               longest_segment=int(seg_len.max()),
                empty_segments=int((seg_len == 0).sum()),
                max_abs_err=err, scale=scale, bitwise=bitwise, ms=ms,
                ms_device=ms_dev, host_enqueue_ms=enqueue_ms,
                plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
-               bound_by=b_by, bytes=nbytes)
+               bound_by=b_by, bytes=nbytes,
+               **_parent_times(values, plan, kw, out_k))
     emit(rec)
-    # One f32 sum per output in another order than index_add_'s atomics (a
-    # long segment adds its chunks' totals): 1e-6 of the largest sum; a
-    # fixed order: the same bits every launch.
+    # One f32 sum per output in another order than index_add_'s atomics
+    # (the kernel adds a long segment's tiles as a tree): 1e-6 of the
+    # largest sum; a fixed order: the same bits every launch.
     if not (math.isfinite(err) and err <= 1e-6 * scale and bitwise):
         raise RuntimeError(f"segment_sum disagrees on {path} {name}: {rec}")
     return rec
+
+
+# The segment sum's edge cases at full size: (case, rows, width, segments,
+# base, sum_dtype).  Beside the call sites' shapes (``segsum``): one
+# segment holding every row, the soft splat's shape with half its rows in
+# the last pixel, the pair rows' shapes (the dense graph's tiles summed in
+# two halves), every row its own segment, segments of one tile and
+# segments that start or end on tile edges, ids outside [0, S) at both
+# ends of the sort, a million segments mostly empty (the dense solvers'
+# blocks), fewer rows than a tile, and the pair rows' shape in bf16.
+SEGSUM_CASES = (
+    ("one_segment", 2_097_152, 4, 1, False, None),
+    ("one_segment", 262_144, 1, 1, False, None),
+    ("one_segment", 131_072, 7, 1, True, None),
+    ("one_segment", 40_960, 49, 1, False, "bf16"),
+    ("sink", 2_097_152, 4, 307_201, False, None),
+    ("sink", 40_960, 49, 4_096, False, "bf16"),
+    ("sink", 97_280, 49, 19_456, False, "bf16"),
+    ("own_segments", 65_536, 7, 65_536, False, None),
+    ("own_segments", 16_384, 49, 16_384, True, None),
+    ("tile_edges", 40_960, 49, None, False, None),
+    ("tile_edges", 97_280, 49, None, True, None),
+    ("tile_edges", 262_144, 4, None, True, "bf16"),
+    ("tile_edges", 65_536, 1, None, False, None),
+    ("outside_ids", 65_536, 7, 384, False, None),
+    ("outside_ids", 40_960, 49, 4_096, True, "bf16"),
+    ("empty_segments", 88_064, 7, 1_032_192, True, None),
+    ("empty_segments", 20_000, 4, 1_000_000, False, None),
+    ("short", 37, 49, 6, True, None),
+    ("short", 500, 4, 9, False, "bf16"),
+)
+
+
+def _segsum_case_ids(case, rows, width, segs, rng):
+    """(ids, segments) of one edge case, seeded."""
+    from super_tpu_torch.kernels.segsum import tile_rows
+
+    tile = tile_rows(width, rows)
+    if case == "one_segment":
+        return np.zeros(rows, np.int64), 1
+    if case == "own_segments":
+        return rng.permutation(rows), rows
+    if case == "sink":
+        ids = rng.integers(0, segs - 1, size=rows)
+        ids[rng.random(rows) < 0.5] = segs - 1
+        return ids, segs
+    if case == "tile_edges":
+        pattern = [tile, tile - 1, 1, tile, 2, tile - 2, 2 * tile + 1, 1,
+                   tile - 1, 3]
+        lengths = pattern * -(-rows // sum(pattern))
+        ids = np.repeat(np.arange(len(lengths)), lengths)[:rows]
+        return rng.permutation(ids), len(lengths)
+    if case == "outside_ids":
+        ids = rng.integers(0, segs, size=rows)
+        ids[rng.random(rows) < 0.05] = -1
+        ids[rng.random(rows) < 0.05] = segs + 3
+        return ids, segs
+    if case == "empty_segments":
+        hit = rng.choice(np.arange(1, segs - 1), size=rows // 4,
+                         replace=False)
+        return rng.choice(hit, size=rows), segs
+    if case == "short":
+        return rng.integers(0, segs, size=rows), segs
+    raise ValueError(case)
+
+
+def phase_segsum_cases(dev):
+    """The segment sum on its edge cases at full size (SEGSUM_CASES),
+    against an f64 index_add_ of the rows inside [0, S): on integer values
+    in [-8, 8] (every partial sum exact in f32 and bf16) equal, on seeded
+    normal values within 1e-6 of the largest sum (f32 index_add_'s own
+    error beside: its atomics add a 2M-row segment in series); bitwise
+    across two launches.  Timed on the normal values beside the parent
+    kernel (where given) and index_add_."""
+    from super_tpu_torch.kernels import segsum
+
+    rng = np.random.default_rng(SEED)
+    for case, rows, width, segs, with_base, sum_dtype in SEGSUM_CASES:
+        ids_np, segs = _segsum_case_ids(case, rows, width, segs, rng)
+        ids = torch.as_tensor(ids_np, device=dev)
+        plan = segsum.segment_plan(ids, segs)
+        inside = (ids >= 0) & (ids < segs)
+        rec = dict(phase="segsum_cases", case=case, rows=rows, width=width,
+                   segments=segs, base=with_base, sum_dtype=sum_dtype,
+                   tile_rows=segsum.tile_rows(width, rows),
+                   longest_segment=int(torch.diff(plan.offsets).max()),
+                   empty_segments=int((torch.diff(plan.offsets) == 0).sum()),
+                   rows_outside=int((~inside).sum()))
+        ok = True
+        for data in ("integer", "normal"):
+            if data == "integer":
+                values = torch.as_tensor(rng.integers(
+                    -8, 9, size=(rows, width)).astype(np.float32), device=dev)
+                base = (torch.as_tensor(rng.integers(
+                    -8, 9, size=(segs, width)).astype(np.float32), device=dev)
+                    if with_base else None)
+            else:
+                values = torch.as_tensor(rng.normal(size=(rows, width)).astype(
+                    np.float32), device=dev)
+                base = (torch.as_tensor(rng.normal(size=(segs, width)).astype(
+                    np.float32), device=dev) if with_base else None)
+            kw = dict(sum_dtype=sum_dtype, base=base)
+            out, out2 = (segsum.segment_sum(values, plan, **kw),
+                         segsum.segment_sum(values, plan, **kw))
+            rounded = (values.to(torch.bfloat16).float() if sum_dtype
+                       else values)
+
+            def index_add(dt):
+                ref = (torch.zeros((segs, width), dtype=dt, device=dev)
+                       if base is None else base.to(dt).clone())
+                return ref.index_add_(0, ids[inside], rounded[inside].to(dt))
+
+            ref = index_add(torch.float64)
+            torch.cuda.synchronize()
+            bitwise = bool(torch.equal(out, out2))
+            err = float(torch.max(torch.abs(out.double() - ref)))
+            scale = float(torch.max(torch.abs(ref)))
+            rec[data] = dict(
+                max_abs_err=err, scale=scale, bitwise=bitwise,
+                library_err=float(torch.max(torch.abs(
+                    index_add(torch.float32).double() - ref))))
+            ok &= bitwise and (err == 0 if data == "integer"
+                               else math.isfinite(err) and err <= 1e-6 * scale)
+        acc = torch.zeros((segs, width), device=dev)
+        vin, iin = values[inside], ids[inside]
+        b_ms, b_by, nbytes = _segsum_bound(values, plan, kw)
+        rec.update(
+            ms=cuda_ms(lambda: segsum.segment_sum(values, plan, **kw),
+                       reps=20),
+            ms_device=cuda_ms(lambda: segsum.segment_sum(values, plan, **kw),
+                              reps=20, queued=True),
+            library_ms=cuda_ms(lambda: acc.index_add_(0, iin, vin), reps=20),
+            bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+            **_parent_times(values, plan, kw, out))
+        emit(rec)
+        if not ok:
+            raise RuntimeError(f"segment_sum disagrees on case {case}: {rec}")
 
 
 def phase_repeat(dev, cfg, intr, frames):
@@ -1513,6 +1735,13 @@ def phase_segsum_semantic(dev, intr, frames):
         segsum.segment_sum = real
     recs = {name: _segsum_check("semantic", name, v, p, kw)
             for name, v, p, kw in sums}
+    # The splat plans its sum at every evaluation: the sort of its ids.
+    plan = sums[-1][2]
+    emit(dict(phase="segsum_semantic_plan", sum="splat_pixels",
+              rows=plan.ids.shape[0], segments=plan.num_segments,
+              plan_ms=cuda_ms(lambda: segsum.segment_plan(
+                  plan.ids, plan.num_segments), reps=20),
+              sum_ms=recs["splat_pixels"]["ms"]))
     return recs["anchor_rows"]
 
 
@@ -1998,8 +2227,11 @@ def main() -> int:
     from super_tpu_torch.core.losses import associate, prepare_lm
     from super_tpu_torch.core.tracker import init_tracker
 
+    parent_segsum = None
+    if "--parent-segsum" in sys.argv:
+        parent_segsum = sys.argv[sys.argv.index("--parent-segsum") + 1]
     card = card_line()
-    phase_build()
+    phase_build(parent_segsum)
     k1 = phase_k1(dev)
     k1b = phase_k1b(dev)
     k3 = phase_k3(dev)
@@ -2012,6 +2244,7 @@ def main() -> int:
     k2_fused = phase_k2_fused(dev, cfg, ctx, assoc)
     phase_pair_path(dev, "path_main", cfg, ctx, assoc, intr)
     segsum = phase_segsum(dev, "lm", cfg, ctx, assoc, intr)["pair_rows"]
+    phase_segsum_cases(dev)
     pcg_cfg = workload_config("pcg_pallas")
     pcg_ctx = prepare_lm(pcg_cfg, state.surfels, state.graph, frames[1])
     phase_segsum(dev, "pcg_pallas", pcg_cfg, pcg_ctx,

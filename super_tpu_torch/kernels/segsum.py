@@ -5,9 +5,9 @@ in f32.  PyTorch's ``index_add_`` computes this with float atomics on the
 card, in an order that changes from run to run; the JAX package sums in a
 fixed order (``super_tpu/core/assembly.py:segment_sum_matmul``).  The
 kernel, super_tpu_torch/csrc/segment_sum.cu (its bound and design are stated
-there), adds each segment's rows in ascending row order and uses no float
-atomics, so the card path repeats bit for bit.  It has no TPU kernel behind
-it.
+there), sums in one launch with an association fixed by the plan and the
+tile size (:func:`tile_rows`), and uses no float atomics, so the card path
+repeats bit for bit.  It has no TPU kernel behind it.
 
 The ids are fixed for a frame wherever the assembly sums (the layout's pair
 ranks, the ARAP node ids, the dense block ids), so :func:`segment_plan`
@@ -57,10 +57,36 @@ def segment_plan(ids, num_segments: int) -> SegmentPlan:
                        offsets=offsets.to(torch.int32))
 
 
+# The kernel's partition (csrc/segment_sum.cu): a tile is GROUP_ROWS rows
+# times the groups that a 256-thread CTA walks in one pass at a slab's
+# width (at most 32), and rows wider than SLAB_COLS are cut into slabs of
+# that many columns.  Where rows are wide and such tiles outnumber the
+# CTAs a card holds at once (ONE_WAVE, 132 SMs of an H100 at 5 CTAs,
+# rounded down), a tile takes twice the groups, summed in two halves.
+GROUP_ROWS, MAX_GROUPS, SLAB_COLS, CTA_THREADS = 16, 32, 64, 256
+ONE_WAVE = 512
+
+
+def tile_rows(width: int, rows: int) -> int:
+    """Sorted positions a tile of the kernel covers for ``rows`` rows of
+    width ``width``; the association of the kernel's sums depends only on
+    it and the plan."""
+    g = max(1, min(MAX_GROUPS, CTA_THREADS // min(width, SLAB_COLS)))
+    if g < MAX_GROUPS and -(-rows // (GROUP_ROWS * g)) > ONE_WAVE:
+        g = min(MAX_GROUPS, 2 * g)
+    return GROUP_ROWS * g
+
+
+def units(rows: int, width: int) -> int:
+    """Units of work (tiles times slabs) for ``rows`` rows: the kernel's
+    carries and tickets."""
+    return -(-rows // tile_rows(width, rows)) * -(-width // SLAB_COLS)
+
+
 def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare the C signatures of a build of csrc/segment_sum.cu."""
+    """Declare the C signature of a build of csrc/segment_sum.cu."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.segment_sum_launch.argtypes = [vp] * 6 + [ci] * 4 + [vp]
+    lib.segment_sum_launch.argtypes = [vp] * 7 + [ci] * 5 + [vp]
     lib.segment_sum_launch.restype = ci
     return lib
 
@@ -71,6 +97,27 @@ def _lib():
     from super_tpu_torch.kernels.build import load
 
     return declare(load("segment_sum"))
+
+
+_scratch = {}
+
+
+def _kernel_scratch(n_units: int, width: int, dev):
+    """The kernel's scratch on ``dev`` for ``n_units`` units: the tiles'
+    head and tail carries (2 n_units min(width, 64) floats) and a ticket
+    counter a unit.  Kept from call to call and grown when short: the
+    counters are zeroed when made and every launch leaves those it used at
+    0.  Launches share it, so they must run in turn, on one stream, as the
+    port's do."""
+    carry = 2 * n_units * min(width, SLAB_COLS)
+    have = _scratch.get(dev)
+    if have is None or have[0].numel() < carry or have[1].numel() < n_units:
+        have = (torch.empty((max(carry, 1 << 16),), dtype=torch.float32,
+                            device=dev),
+                torch.zeros((max(n_units, 1 << 12),), dtype=torch.int32,
+                            device=dev))
+        _scratch[dev] = have
+    return have
 
 
 def _check_sum_dtype(sum_dtype):
@@ -126,17 +173,13 @@ def segment_sum(values, plan: SegmentPlan, *, sum_dtype=None, base=None):
                              f"{tuple(base.shape)} on {base.device}")
         base = base.contiguous()
     values = values.contiguous()
+    carries, tickets = _kernel_scratch(units(r, f), f, dev)
     out = torch.empty((s,) + feat, dtype=torch.float32, device=dev)
-    # The chunk totals (csrc/segment_sum.cu's L = 64 rows a chunk).  Freed
-    # on return while the kernel may still run: the caching allocator hands
-    # its memory only to work queued after it on this stream.
-    chunks = torch.empty(((r + 63) // 64 * f,), dtype=torch.float32,
-                         device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _lib().segment_sum_launch(
         values.data_ptr(), plan.order.data_ptr(), plan.offsets.data_ptr(),
         None if base is None else base.data_ptr(), out.data_ptr(),
-        chunks.data_ptr(), r, s, f, int(sum_dtype == "bf16"), stream)
+        carries.data_ptr(), tickets.data_ptr(), r, s, f, tile_rows(f, r),
+        int(sum_dtype == "bf16"), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"segment_sum launch failed: cudaError {rc}")
     segment_sum.launches += 1
