@@ -23,7 +23,19 @@ through its kernels and that its results are right:
 - semantic: the autograd Semantic-SuPer fit, ``workload_config("semantic")``
   (Adam, 10 steps a frame, soft-seg ICP, face, rotation and boundary-morph
   losses, the generator's two-class segmentations), which runs no TPU
-  kernel's counterpart.
+  kernel's counterpart;
+- the option paths (``OPTION_PATHS``, 3 frames each): ``hypotheses`` (the
+  headline with 3 damping hypotheses a trip: K1 3 times a trip),
+  ``hypotheses_dense`` (``pcg_pallas`` with 2: K3 twice a trip),
+  ``scatter`` (the scatter assembly with Cholesky: no K2, the segment sum
+  once a chunk of slots and 3 more times a trip), ``expand_blocks`` (the
+  tuple Grams summed into node-pair blocks, Cholesky) and ``bf16_pcg``
+  (the dense graph with a bf16 matrix and PCG); each also tracks frame 1
+  twice, bitwise, and ``option_reference`` holds its frame-1 solve to the
+  CPU path's.  ``segsum_scatter`` holds the segment sum to its plain
+  version on the scatter assembly's slot blocks and J^T r rows, and
+  ``proj_map_scatter`` requires fusion's scatter projection maps (and a
+  fusion in that mode) to equal the sort maps on the headline.
 
 Every LM path sums its assembly's shared destinations with the fixed-order
 segment sum (``csrc/segment_sum.cu``) four times a trip, and the node radii
@@ -137,6 +149,20 @@ SEMANTIC_CLASSES = 2
 # G-blocks' anchor rows and of the triangle corners into the nodes (with
 # the render loss also the soft splat's pixel sums, forward).
 SEGSUM_PER_FIT_STEP = 2
+OPTION_FRAMES = 3                  # tracked frames of each option path
+# The option paths (config.WORKLOADS): {kernel: launches per LM trip}
+# beside the segment sum's (option_segsum_per_trip).
+OPTION_PATHS = (("hypotheses", {"pairs_cg": 3, "data_gram": 1}),
+                ("hypotheses_dense", {"dense_cg": 2, "data_gram": 1}),
+                ("scatter", {}),
+                ("expand_blocks", {"data_gram": 1}),
+                ("bf16_pcg", {"data_gram": 1}))
+# Frame 1's beta on the card against the CPU path: the main path's 1e-4,
+# but for the hypotheses, which take the least of H candidate costs that
+# agree to ~1e-7 at convergence, as the rounding decides (the JAX
+# package's own jit and eager runs end 1.3e-4 apart on the tiny scene,
+# tests/test_torch_hypotheses.py).
+OPTION_BETA_TOL = {"hypotheses": 1e-3, "hypotheses_dense": 1e-3}
 
 
 def emit(obj):
@@ -942,6 +968,122 @@ def phase_solvers(dev, intr, frames):
     return launches
 
 
+def option_segsum_per_trip(cfg):
+    """Segment-sum launches of an LM trip: SEGSUM_PER_TRIP, or with the
+    scatter assembly one a chunk of slots, and the slots' J^T r rows, the
+    ARAP rows and the graph blocks."""
+    from super_tpu_torch.core.losses import assembly_chunk_size
+
+    if cfg.solver.assembly_mode == "tuple":
+        return SEGSUM_PER_TRIP
+    n = cfg.capacity.surfel_capacity
+    return n // assembly_chunk_size(n, cfg.solver.assembly_chunk) + 3
+
+
+def phase_options(dev, intr, frames):
+    """The option paths at 480 x 640 (OPTION_PATHS): OPTION_FRAMES tracked
+    frames each through ``_run_path`` with the path's own launches a trip,
+    then frame 1 tracked twice from the same state, bitwise.  Returns
+    {path: launches}."""
+    from super_tpu_torch.config import workload_config
+    from super_tpu_torch.core.tracker import init_tracker, track_step
+
+    out = {}
+    for name, per_trip in OPTION_PATHS:
+        cfg = workload_config(name)
+        per_trip = dict(per_trip, segment_sum=option_segsum_per_trip(cfg))
+        out[name] = _run_path(name, cfg, intr, frames[:OPTION_FRAMES + 1],
+                              per_trip)
+        state = init_tracker(cfg, frames[0])
+        a = track_step(cfg, intr, state, frames[1])
+        b = track_step(cfg, intr, state, frames[1])
+        torch.cuda.synchronize()
+        same = _same(a, b)
+        emit(dict(phase=f"{name}_repeat", bitwise=same))
+        if not same:
+            raise RuntimeError(f"{name}: frame 1 does not repeat bitwise")
+        del state, a, b
+    return out
+
+
+def phase_option_reference(intr, frames):
+    """Frame 1 of each option path on the card against the CPU path from
+    identical inputs: beta within OPTION_BETA_TOL (else the main path's
+    1e-4), the cost within 1e-2."""
+    from super_tpu_torch.config import workload_config
+
+    out = {}
+    for name, _ in OPTION_PATHS:
+        res_c, res_h, cpu_s = _frame1_vs_cpu(workload_config(name), intr,
+                                             frames)
+        beta_err, cost_err = _solve_diff(res_c, res_h)
+        out[name] = dict(beta_max_abs_err=beta_err,
+                         cost_rel_err=cost_err / float(res_h.cost),
+                         cost=float(res_c.cost), cpu_s=cpu_s,
+                         beta_tol=OPTION_BETA_TOL.get(name, 1e-4))
+    emit(dict(phase="option_reference", frame1=out))
+    bad = {k: v for k, v in out.items()
+           if not (v["beta_max_abs_err"] < v["beta_tol"]
+                   and v["cost_rel_err"] < 1e-2)}
+    if bad:
+        raise RuntimeError(f"frame 1 disagrees with the CPU path: {bad}")
+
+
+def phase_segsum_scatter(dev, intr, frames):
+    """The segment sum on the scatter assembly's frame-1 sums at a
+    perturbed beta (``_segsum_check`` against the plain version in f64):
+    a chunk of slot blocks onto the running sums (32,768 slots x 16 blocks
+    of 49, 147,457 segments), and the slots' J^T r rows (1,703,936 rows,
+    the sink's 485,284 and the nodes' up to ~2 x 10^4).  Returns the
+    blocks' record."""
+    from super_tpu_torch.config import workload_config
+    from super_tpu_torch.core.losses import associate, prepare_lm
+    from super_tpu_torch.core.tracker import init_tracker
+
+    cfg = workload_config("scatter")
+    state = init_tracker(cfg, frames[0])
+    ctx = prepare_lm(cfg, state.surfels, state.graph, frames[1])
+    calls, _ = _capture_sums(cfg, ctx, _perturbed_beta(cfg, dev), intr,
+                             associate(cfg, ctx, intr))
+    nc = len(ctx.chunk_plans)
+    rec = _segsum_check("scatter", "slot_blocks", *calls[1], f64=True)
+    _segsum_check("scatter", "slot_jtr", *calls[nc], f64=True)
+    return rec
+
+
+def phase_proj_map_scatter(dev, cfg, intr, frames):
+    """Fusion's ``proj_map_mode="scatter"`` on the headline after 2 tracked
+    frames: the layer maps equal the sort mode's, entry for entry, and a
+    fusion of frame 3 in each mode gives bitwise equal surfels, remap and
+    counters; both maps' device ms."""
+    from super_tpu_torch.core.fusion import build_projection_maps, fuse_frame
+    from super_tpu_torch.core.tracker import init_tracker, track_step
+
+    state = init_tracker(cfg, frames[0])
+    for f in frames[1:3]:
+        state, _ = track_step(cfg, intr, state, f)
+    modes = {m: cfg.replace(proj_map_mode=m) for m in ("sort", "scatter")}
+    maps = {m: build_projection_maps(c, intr, state.surfels)
+            for m, c in modes.items()}
+    fused = {m: fuse_frame(c, intr, state.surfels, state.graph, frames[3])
+             for m, c in modes.items()}
+    ms = {m: cuda_ms(lambda c=c: build_projection_maps(c, intr,
+                                                       state.surfels),
+                     reps=10) for m, c in modes.items()}
+    torch.cuda.synchronize()
+    depth_l = cfg.capacity.proj_map_depth
+    lay = maps["sort"][1]
+    rec = dict(phase="proj_map_scatter", maps_equal=_same(maps["sort"],
+                                                          maps["scatter"]),
+               fusion_equal=_same(fused["sort"], fused["scatter"]),
+               multi_layer_pixels=int((maps["sort"][0][1] >= 0).sum()),
+               overflow=int((lay == depth_l).sum()),
+               sort_ms=ms["sort"], scatter_ms=ms["scatter"])
+    emit(rec)
+    if not (rec["maps_equal"] and rec["fusion_equal"]):
+        raise RuntimeError(f"scatter projection maps differ: {rec}")
+
+
 def _to(x, d):
     """A tensor, or a NamedTuple tree of them, on device ``d``."""
     if isinstance(x, torch.Tensor):
@@ -1116,22 +1258,30 @@ def _segsum_bound(values, plan, kw):
     return bound(nbytes, values.numel()) + (nbytes,)
 
 
-def _segsum_check(path, name, values, plan, kw):
+def _segsum_check(path, name, values, plan, kw, f64=False):
     """One sum by the kernel against its plain version: max abs error <=
     1e-6 of the largest sum, two launches bitwise equal; the kernel's time,
-    the plain version's, index_add_'s alone and the bound.  Returns the
-    record."""
+    the plain version's, index_add_'s alone and the bound.  With ``f64``
+    the error is taken against the plain version in f64 (f32 values,
+    exact sums): on segments of 10^4 to 10^5 rows index_add_'s own f32
+    error nears 1e-6.  Returns the record."""
     from super_tpu_torch.kernels.segsum import segment_sum, segment_sum_plain
 
     values = values.detach()
     out_k, out_k2 = segment_sum(values, plan, **kw), \
         segment_sum(values, plan, **kw)
-    out_p = segment_sum_plain(values, plan, **kw)
+    if f64:
+        base = kw.get("base")
+        out_p = segment_sum_plain(
+            values.double(), plan,
+            base=None if base is None else base.double())
+    else:
+        out_p = segment_sum_plain(values, plan, **kw)
     torch.cuda.synchronize()
-    err = float(torch.max(torch.abs(out_k - out_p)))
+    err = float(torch.max(torch.abs(out_k.double() - out_p.double())))
     scale = float(torch.max(torch.abs(out_p)))
     bitwise = bool(torch.equal(out_k, out_k2))
-    acc = torch.zeros_like(out_p)
+    acc = torch.zeros_like(out_k)
     ms = cuda_ms(lambda: segment_sum(values, plan, **kw), reps=20)
     ms_dev = cuda_ms(lambda: segment_sum(values, plan, **kw), reps=20,
                      queued=True)
@@ -1148,7 +1298,8 @@ def _segsum_check(path, name, values, plan, kw):
                base=kw.get("base") is not None,
                longest_segment=int(seg_len.max()),
                empty_segments=int((seg_len == 0).sum()),
-               max_abs_err=err, scale=scale, bitwise=bitwise, ms=ms,
+               reference="f64" if f64 else "f32", max_abs_err=err,
+               scale=scale, bitwise=bitwise, ms=ms,
                ms_device=ms_dev, host_enqueue_ms=enqueue_ms,
                plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
                bound_by=b_by, bytes=nbytes,
@@ -2264,6 +2415,9 @@ def main() -> int:
     del state, ctx, assoc
     solver_launches = phase_solvers(dev, intr, frames)
     phase_dense_path(dev, intr, frames)
+    option_launches = phase_options(dev, intr, frames)
+    segsum_scatter = phase_segsum_scatter(dev, intr, frames)
+    phase_proj_map_scatter(dev, cfg, intr, frames)
     sem_cfg, sem_frames, sem_launches = phase_semantic(dev, intr)
     segsum_sem = phase_segsum_semantic(dev, intr, sem_frames)
     phase_repeat_semantic(dev, sem_cfg, intr, sem_frames)
@@ -2275,6 +2429,7 @@ def main() -> int:
     pool, sequences = _start_sequences(intr, PIPELINE_SEEDS)
     try:
         phase_path_reference(intr, frames)
+        phase_option_reference(intr, frames)
         per_it_launches, k2_per_it = phase_per_iteration(dev, intr, frames)
         phase_semantic_reference(dev, sem_cfg, intr, sem_frames)
         phase_pipeline(dev, intr, sequences)
@@ -2292,11 +2447,16 @@ def main() -> int:
         e2e_launches["segment_sum"], segsum_sem)
     segsum_entry.update(launches_lm=launches["segment_sum"],
                         launches_semantic=sem_launches["segment_sum"],
-                        lm_pair_rows_ms=segsum["ms"])
+                        launches_scatter=option_launches["scatter"][
+                            "segment_sum"],
+                        lm_pair_rows_ms=segsum["ms"],
+                        scatter_blocks_ms=segsum_scatter["ms"])
     k1_entry = _kernel_entry("pairs_cg", "super_tpu_torch/csrc/pairs_cg.cu",
                              "super_tpu/pallas_kernels/pcg.py:92",
                              e2e_launches["pairs_cg"], k1)
-    k1_entry.update(launches_lm=launches["pairs_cg"])
+    k1_entry.update(launches_lm=launches["pairs_cg"],
+                    launches_hypotheses=option_launches["hypotheses"][
+                        "pairs_cg"])
     k2_entry = _kernel_entry("data_gram", "super_tpu_torch/csrc/tuple_gram.cu",
                              "super_tpu/pallas_kernels/gram.py:33",
                              e2e_launches["data_gram"], k2_fused)
@@ -2311,9 +2471,11 @@ def main() -> int:
                       "super_tpu/pallas_kernels/gram.py:33",
                       per_it_launches["tuple_gram"], k2_per_it),
         k2_entry,
-        _kernel_entry("dense_cg", "super_tpu_torch/csrc/dense_cg.cu",
-                      "super_tpu/pallas_kernels/pcg.py:32",
-                      solver_launches["dense_cg"], k3),
+        dict(_kernel_entry("dense_cg", "super_tpu_torch/csrc/dense_cg.cu",
+                           "super_tpu/pallas_kernels/pcg.py:32",
+                           solver_launches["dense_cg"], k3),
+             launches_hypotheses=option_launches["hypotheses_dense"][
+                 "dense_cg"]),
         segsum_entry,
     ]})
     print(card, flush=True)

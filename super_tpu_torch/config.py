@@ -43,14 +43,19 @@ class LossConfig:
 class SolverConfig:
     """Per-frame warp-field solver settings.
 
-    The port runs the LM path with ``association`` ``"per_frame"``,
-    ``"per_iteration"`` or ``"per_iteration_frozen"``,
-    ``lm_hypotheses=1``, the tuple assembly with the pair expansion, either
-    ``lm_schedule``, and the ``pairs_fused``, ``cholesky``, ``pcg`` and
-    ``pcg_pallas`` solvers, and the autograd path
-    (``use_derived_gradient=False``) with ``optimizer`` ``"SGD"`` or
-    ``"Adam"``; the other values of these fields belong to later slices and
-    raise where they would be taken.
+    The port runs every value the JAX package accepts: the LM path with
+    ``association`` ``"per_frame"``, ``"per_iteration"`` or
+    ``"per_iteration_frozen"``, either ``lm_schedule`` or ``lm_hypotheses``
+    > 1, the ``pairs_fused``, ``cholesky``, ``pcg`` and ``pcg_pallas``
+    solvers, the tuple or scatter ``assembly_mode``, any
+    ``assembly_expand``, ``jtj_dtype="bf16"`` with ``pcg`` (the JAX
+    package's ValueError elsewhere), ``jac_dtype="bf16"`` where the JAX
+    package honours it (a frozen association outside the ``"pallas"``
+    backend), and the autograd path (``use_derived_gradient=False``) with
+    ``optimizer`` ``"SGD"`` or ``"Adam"``.  ``assembly_backend``,
+    ``assembly_combine`` and ``moving_premix`` change how the JAX package
+    lays out the same sums on a TPU: the port runs the same kernels for
+    every value.
     """
 
     use_derived_gradient: bool = True
@@ -254,7 +259,19 @@ def e2e_depth_workload_config(height: int = 480, width: int = 640,
 # The named paths of the tracking step at 480 x 640 that chip_smoke.py and
 # profile_step.py drive.
 WORKLOADS = ("lm", "dense16", "pcg_pallas", "cholesky", "pcg",
-             "per_iteration", "semantic", "e2e_depth")
+             "per_iteration", "semantic", "e2e_depth", "hypotheses",
+             "hypotheses_dense", "scatter", "expand_blocks", "bf16_pcg")
+
+# The option paths: (base path, solver fields).
+_OPTION_PATHS = {
+    "hypotheses": ("lm", dict(lm_hypotheses=3)),
+    "hypotheses_dense": ("pcg_pallas", dict(lm_hypotheses=2)),
+    "scatter": ("lm", dict(assembly_mode="scatter",
+                           linear_solver="cholesky")),
+    "expand_blocks": ("lm", dict(assembly_expand="scatter",
+                                 linear_solver="cholesky")),
+    "bf16_pcg": ("dense16", dict(linear_solver="pcg", jtj_dtype="bf16")),
+}
 
 
 def workload_config(name: str) -> SuPerConfig:
@@ -265,9 +282,18 @@ def workload_config(name: str) -> SuPerConfig:
     moving-target association (the JAX bench's ``per_iteration_hz``);
     ``semantic``, the autograd Semantic-SuPer fit (the JAX bench's
     ``semantic_hz``); ``e2e_depth``, the headline with monodepth2's depth
-    (the JAX bench's ``e2e_depth_hz``)."""
+    (the JAX bench's ``e2e_depth_hz``).  The option paths: ``hypotheses``,
+    the headline with 3 damping hypotheses a trip; ``hypotheses_dense``,
+    ``pcg_pallas`` with 2; ``scatter``, the headline with the scatter
+    assembly and Cholesky; ``expand_blocks``, the headline with the tuple
+    Grams expanded into node-pair blocks and Cholesky; ``bf16_pcg``,
+    ``dense16`` with a bf16 dense matrix and PCG."""
     if name not in WORKLOADS:
         raise ValueError(f"unknown workload {name!r}; one of {WORKLOADS}")
+    if name in _OPTION_PATHS:
+        base, fields = _OPTION_PATHS[name]
+        cfg = workload_config(base)
+        return cfg.replace(solver=dataclasses.replace(cfg.solver, **fields))
     if name == "semantic":
         return semantic_workload_config(480, 640)
     if name == "e2e_depth":

@@ -7,7 +7,8 @@ tuple.  Per LM trip, the tuple-Gram kernel (kernels/gram.py) reduces the
 gradient rows to per-tuple Grams, and :func:`reduce_pairs` folds those into
 the distinct node-pair blocks the pair-sparse CG solve consumes, or
 :func:`expand_pairs` writes them into the dense (7J, 7J) normal matrix of
-the dense solvers.  Inactive surfels sort into the last tuple, a sink whose
+the dense solvers, or :func:`expand_to_blocks` sums them into node-pair
+blocks.  Inactive surfels sort into the last tuple, a sink whose
 slots are masked.  Rows that share a pair or a node are added by the
 fixed-order segment sum (kernels/segsum.py), whose row order the layout
 sorts once a frame (``pair_plan``, ``node_plan``).
@@ -264,13 +265,28 @@ def _scatter_blocks_set(dense, starts, blocks):
 
 
 def expand_pairs(layout: TupleLayout, gram, jtr_t, node_cap: int,
-                 sum_dtype=None):
-    """Per-tuple Grams -> dense (7J, 7J) JTJ and (J, 7) JTr through the pair
-    layout: the symmetric-half pair sums of :func:`reduce_pairs`, set into
-    S at each distinct pair's block, then JTJ = S + S^T."""
+                 sum_dtype=None, acc_dtype=torch.float32):
+    """Per-tuple Grams -> dense (7J, 7J) JTJ in ``acc_dtype`` and (J, 7) JTr
+    through the pair layout: the symmetric-half pair sums of
+    :func:`reduce_pairs`, set into S at each distinct pair's block, then
+    JTJ = S + S^T."""
     acc, jtr = reduce_pairs(layout, gram, jtr_t, node_cap,
                             sum_dtype=sum_dtype)
     dim = 7 * node_cap
-    s = _scatter_blocks_set(acc.new_zeros((dim, dim)), layout.pair_dest,
-                            acc.reshape(-1, 7, 7))
+    s = _scatter_blocks_set(acc.new_zeros((dim, dim), dtype=acc_dtype),
+                            layout.pair_dest, acc.reshape(-1, 7, 7))
     return s + s.T, jtr
+
+
+def expand_to_blocks(layout: TupleLayout, gram, jtr_t, plan: SegmentPlan):
+    """Per-tuple Grams -> (J J + 1, 49) node-pair blocks and (J, 7) JTr,
+    without the pair layout: every tuple's K x K anchor blocks summed at
+    their node pairs by ``plan`` (losses.prepare_lm's ``expand_plan``; the
+    last segment a sink no block reaches), the sink tuple's zero blocks
+    included, and its anchor J^T r rows at their nodes."""
+    t_cap = gram.shape[0]
+    k = layout.tuple_nodes.shape[1]
+    blocks = gram.reshape(t_cap, k, 7, k, 7).permute(0, 1, 3, 2, 4)
+    acc = segment_sum(blocks.reshape(-1, 49), plan)
+    jtr = segment_sum(-jtr_t.reshape(t_cap * k, 7), layout.node_plan)
+    return acc, jtr

@@ -1,10 +1,11 @@
 """Surfel fusion: merge a frame's observations into the fixed-capacity map
-(counterpart of super_tpu/core/fusion.py, ``proj_map_mode="sort"``).
+(counterpart of super_tpu/core/fusion.py, both ``proj_map_mode`` values).
 With ``method="semantic-super"`` the merges also blend the class
 confidences, renormalise them and take the class as their argmax.
 
-1. Projection order: active surfels sorted by (pixel, confidence descending,
-   slot id); a surfel's layer is its position in its pixel's run, and
+1. Projection layers: active surfels in order of (pixel, confidence
+   descending, slot id) (:func:`build_projection_maps`, by sort or by
+   scatter); a surfel's layer is its position in its pixel's run, and
    surfels beyond ``proj_map_depth`` layers are deleted.
 2. New candidates merge into the first layer surfel at their pixel that
    passes the position/normal gate (confidence-weighted values).
@@ -75,6 +76,62 @@ def _proj_sort_products(p: int, confs, valid, coords):
     new_run[1:] = sorted_coords[1:] != sorted_coords[:-1]
     first_idx = torch.cummax(torch.where(new_run, iota, 0), dim=0).values
     return sorted_coords, iota - first_idx, order
+
+
+def build_projection_maps(cfg: SuPerConfig, intr: Intrinsics,
+                          surfels: SurfelState):
+    """Per-pixel surfel layers: within a pixel, surfels in order of
+    confidence, descending, ties by slot id ascending.
+
+    ``proj_map_mode="sort"``: one order of (pixel, conf desc, slot id),
+    each surfel's layer its position in its pixel's run.  ``"scatter"``:
+    the top surfel of every pixel peeled once a layer by scatter-max of the
+    confidences and scatter-min of the slot ids among the maxima (both
+    order-free, so the card repeats them); the same maps.
+
+    Returns (proj_id (L, P) int64 slot per layer and pixel, -1 empty;
+    sf_layer (N,) int64, [0, L) in the map, L beyond it, -1 where inactive
+    or out of frame; sf_pix (N,) int32 pixel, 0 where invalid)."""
+    h, w = cfg.height, cfg.width
+    p = cfg.image_pixels
+    depth_l = cfg.capacity.proj_map_depth
+    n = surfels.confs.shape[0]
+    dev = surfels.confs.device
+    _, _, coords, in_bounds = project_points(surfels.points, intr, h, w)
+    valid = in_bounds & surfels.active
+    sf_pix = torch.where(valid, coords, 0).to(torch.int32)
+    if cfg.proj_map_mode == "scatter":
+        ids = torch.arange(n, device=dev)
+        pix = sf_pix.long()
+        alive = valid
+        sf_layer = torch.where(valid, depth_l, -1)
+        layers = []
+        for li in range(depth_l):
+            key = torch.where(alive, surfels.confs, float("-inf"))
+            best = torch.full((p,), float("-inf"), dtype=key.dtype,
+                              device=dev).scatter_reduce(0, pix, key, "amax")
+            cand = alive & (key == best[pix]) & (key > float("-inf"))
+            wid = torch.full((p,), n, device=dev).scatter_reduce(
+                0, pix, torch.where(cand, ids, n), "amin")
+            winner = cand & (ids == wid[pix])
+            layers.append(torch.where(wid < n, wid, -1))
+            sf_layer = torch.where(winner, li, sf_layer)
+            alive = alive & ~winner
+        return torch.stack(layers), sf_layer, sf_pix
+    if cfg.proj_map_mode != "sort":
+        raise ValueError(f"unknown proj_map_mode {cfg.proj_map_mode!r}")
+    sorted_coords, layer, order = _proj_sort_products(p, surfels.confs,
+                                                      valid, coords)
+    in_map_s = (sorted_coords < p) & (layer < depth_l)
+    flat_idx = torch.where(in_map_s, layer * p + sorted_coords, depth_l * p)
+    proj_id = set_columns_drop(
+        torch.full((depth_l * p,), -1, dtype=torch.int64, device=dev),
+        flat_idx, order).reshape(depth_l, p)
+    layer_sorted = torch.where(sorted_coords < p,
+                               torch.clamp(layer, max=depth_l), -1)
+    sf_layer = torch.empty((n,), dtype=torch.int64, device=dev)
+    sf_layer[order] = layer_sorted
+    return proj_id, sf_layer, sf_pix
 
 
 def _pack_bank(points, norms, colors, radii, confs, seg, time_stamp,
@@ -234,10 +291,11 @@ def add_candidates(cfg: SuPerConfig, intr: Intrinsics, surfels: SurfelState,
     return surfels, add_overflow, free_exhausted
 
 
-def _stage23(cfg: SuPerConfig, bank, active0, sorted_coords, layer, order,
-             sf_pix, gate_raw, vals_packed, time):
+def _stage23(cfg: SuPerConfig, bank, active0, proj_id, sf_layer, sf_pix,
+             gate_raw, vals_packed, time):
     """Overflow deletion, min-layer candidate winners and the duplicate
-    merges (the JAX package's ``_stage23_slow`` behind ``_slow_lazy``).
+    merges (the JAX package's ``_stage23_slow`` behind ``_slow_lazy``) on
+    the maps of :func:`build_projection_maps`.
 
     Returns (bank, active, remap, consumed, n_overflow, dup_skipped)."""
     p = cfg.image_pixels
@@ -247,17 +305,6 @@ def _stage23(cfg: SuPerConfig, bank, active0, sorted_coords, layer, order,
     dev = bank.device
     merge_new = not cfg.disable_merging_new_surfels
     merge_dup = not cfg.disable_merging_exist_surfels and depth_l > 1
-
-    # Layer structures from the sorted runs: (L, P) map and per-slot layer.
-    in_map_s = (sorted_coords < p) & (layer < depth_l)
-    flat_idx = torch.where(in_map_s, layer * p + sorted_coords, depth_l * p)
-    proj_id = set_columns_drop(
-        torch.full((depth_l * p,), -1, dtype=torch.int64, device=dev),
-        flat_idx, order).reshape(depth_l, p)
-    layer_sorted = torch.where(sorted_coords < p,
-                               torch.clamp(layer, max=depth_l), -1)
-    sf_layer = torch.empty((n_cap,), dtype=torch.int64, device=dev)
-    sf_layer[order] = layer_sorted
 
     remap = torch.arange(n_cap, dtype=torch.int32, device=dev)
     consumed = torch.zeros((p,), dtype=torch.bool, device=dev)
@@ -326,20 +373,12 @@ def fuse_frame(cfg: SuPerConfig, intr: Intrinsics, surfels: SurfelState,
 
     Returns (surfels, remap, diag): ``remap[j] = i`` where surfel j merged
     into i, identity elsewhere."""
-    if cfg.proj_map_mode != "sort":
-        raise NotImplementedError("the port fuses in proj_map_mode='sort'")
-    h, w = cfg.height, cfg.width
-    p = cfg.image_pixels
     time = frame.time
     merge_new = not cfg.disable_merging_new_surfels
     semantic = cfg.method == "semantic-super"
 
-    # --- stage 1: projection ordering ------------------------------------
-    _, _, coords, in_bounds = project_points(surfels.points, intr, h, w)
-    valid = in_bounds & surfels.active
-    sf_pix = torch.where(valid, coords, 0).to(torch.int32)
-    sorted_coords, layer, order = _proj_sort_products(p, surfels.confs,
-                                                      valid, coords)
+    # --- stage 1: projection layers ---------------------------------------
+    proj_id, sf_layer, sf_pix = build_projection_maps(cfg, intr, surfels)
 
     # --- stage 2: every surfel gates against the candidate at its pixel ---
     bank = _pack_bank(surfels.points, surfels.norms, surfels.colors,
@@ -356,8 +395,8 @@ def fuse_frame(cfg: SuPerConfig, intr: Intrinsics, surfels: SurfelState,
 
     # --- stages 2-3: layer winners and duplicate merges -------------------
     bank, active, remap, consumed, n_overflow, dup_skipped = _stage23(
-        cfg, bank, surfels.active, sorted_coords, layer, order, sf_pix,
-        gate_raw, vals_packed, time)
+        cfg, bank, surfels.active, proj_id, sf_layer, sf_pix, gate_raw,
+        vals_packed, time)
     add_mask = (frame.valid & ~consumed) if merge_new else frame.valid
     merged = _unpack_bank(bank)
     surfels = surfels._replace(

@@ -1,7 +1,8 @@
 """Levenberg-Marquardt warp solve (counterpart of super_tpu/core/lm.py:
-the deferred and classic schedules with the per-frame, per-iteration and
-per-iteration-frozen associations, and the pairs_fused, cholesky, pcg and
-pcg_pallas solvers).
+the deferred and classic schedules and H damping hypotheses a trip
+(``lm_hypotheses``), with the per-frame, per-iteration and
+per-iteration-frozen associations, and the pairs_fused, cholesky, pcg
+(also on a bf16 matrix) and pcg_pallas solvers).
 
 The loop has a fixed trip count and branch-free accept/reject
 (``torch.where``), so a frame runs without host syncs.  In the deferred
@@ -232,27 +233,51 @@ def _cholesky_nan(a):
     return torch.where((info == 0)[..., None, None], chol, float("nan"))
 
 
-def _block_jacobi_pcg(a, b, j_cap: int, iterations: int, inv_d, x0):
+def _matvec_bf16(a):
+    """The product of a bf16 matrix with a vector rounded to bf16, summed
+    and returned in f32 (``jax.lax.dot(..., preferred_element_type=
+    float32)``; the bf16 products are exact in f32), as a function of the
+    vector.  On the card one bf16 matrix product with an f32 result; on
+    the CPU the matrix upcast once (the same products)."""
+    if a.device.type == "cuda":
+        return lambda p: torch.mm(a, p.to(torch.bfloat16)[:, None],
+                                  out_dtype=torch.float32)[:, 0]
+    a32 = a.float()
+    return lambda p: a32 @ p.to(torch.bfloat16).float()
+
+
+def _block_jacobi_pcg(a, b, j_cap: int, iterations: int, inv_d, x0,
+                      scaled_eps: float = 0.0):
     """Block-Jacobi PCG on the Jacobi-scaled system D^-1/2 A D^-1/2 x = b,
-    the scaling folded into the matvec (the JAX package's f32 path of
-    ``_block_jacobi_pcg``), warm-started from ``x0``."""
+    the scaling folded into the matvec (the JAX package's
+    ``_block_jacobi_pcg``), warm-started from ``x0`` (None: from zero).
+
+    A bf16 ``a`` (``jtj_dtype="bf16"``) is read by a bf16 matvec with an
+    f32 result, its diagonal blocks make an f32 preconditioner, and
+    ``scaled_eps`` damps the scaled system by the bf16 storage noise's
+    spectral norm."""
     dim = 7 * j_cap
+    mv = _matvec_bf16(a) if a.dtype == torch.bfloat16 else \
+        functools.partial(torch.mv, a)
 
     def matvec(p):
-        return inv_d * (a @ (inv_d * p))
+        y = inv_d * mv(inv_d * p)
+        return y + scaled_eps * p if scaled_eps else y
 
     d_scale = inv_d.reshape(j_cap, 7)
     diag = _diag_blocks(a, j_cap).to(b.dtype) * d_scale[:, :, None] * \
         d_scale[:, None, :]
     eye7 = torch.eye(7, dtype=b.dtype, device=b.device)
-    diag_inv = torch.linalg.inv_ex(diag + 1e-8 * eye7).inverse
+    diag_inv = torch.linalg.inv_ex(diag + (1e-8 + scaled_eps) * eye7).inverse
 
     def precond(r):
         return torch.einsum("jab,jb->ja", diag_inv,
                             r.reshape(j_cap, 7)).reshape(dim)
 
-    x = x0
-    r = b - matvec(x0)
+    if x0 is None:
+        x, r = torch.zeros_like(b), b
+    else:
+        x, r = x0, b - matvec(x0)
     z = precond(r)
     p = z
     rz = r @ z
@@ -305,19 +330,25 @@ def solve_damped(cfg: SuPerConfig, layout, jtj, rhs, u, j_cap: int, x0):
 
     The dense solves other than ``pcg_pallas`` scale the system by its
     diagonal first (the q- and b-columns differ by ~1e3 in magnitude);
-    ``pcg`` warm-starts from ``x0``, the direct solves ignore it."""
+    ``pcg`` warm-starts from ``x0`` (None: from zero), the direct solves
+    ignore it.  A bf16 matrix (``jtj_dtype="bf16"``, ``pcg`` only) is
+    damped in bf16, as the JAX package's, and its PCG adds the damping
+    2^-8 sqrt(7J) in the scaled space."""
     sol = cfg.solver
     if sol.linear_solver == "pairs_fused":
         return _pairs_fused_solve(cfg, layout, jtj, rhs, u, j_cap, x0=x0)
-    a = torch.diagonal_scatter(jtj, jtj.diagonal() + u)
+    a = torch.diagonal_scatter(jtj, jtj.diagonal() + u.to(jtj.dtype))
     if sol.linear_solver == "pcg_pallas":
         return _block_precond_pcg_pallas(a, rhs, j_cap, sol.pcg_iterations)
-    d = torch.sqrt(torch.clamp(a.diagonal(), min=1e-20))
+    d = torch.sqrt(torch.clamp(a.diagonal().to(rhs.dtype), min=1e-20))
     inv_d = 1.0 / d
     b_s = rhs * inv_d
     if sol.linear_solver == "pcg":
+        eps = 2.0 ** -8 * (7 * j_cap) ** 0.5 if a.dtype == torch.bfloat16 \
+            else 0.0
         x = _block_jacobi_pcg(a, b_s, j_cap, sol.pcg_iterations, inv_d,
-                              x0 * d)
+                              None if x0 is None else x0 * d,
+                              scaled_eps=eps)
     else:
         chol = _cholesky_nan(a * inv_d[:, None] * inv_d[None, :])
         y = torch.linalg.solve_triangular(chol, b_s[:, None], upper=False)
@@ -333,12 +364,12 @@ def lm_solve(cfg: SuPerConfig, ctx: LMContext, intr: Intrinsics) -> LMResult:
             "Cholesky would materialize an f32 copy, defeating the bf16 "
             "accumulator's memory purpose)")
     if sol.lm_schedule not in ("deferred", "classic") or \
-            sol.lm_hypotheses != 1 or sol.association not in (
+            sol.association not in (
                 "per_frame", "per_iteration", "per_iteration_frozen"):
         raise NotImplementedError(
-            "the port runs the deferred and classic schedules with "
-            "lm_hypotheses=1 and the per_frame, per_iteration and "
-            "per_iteration_frozen associations")
+            "the port runs the deferred and classic schedules and the "
+            "per_frame, per_iteration and per_iteration_frozen "
+            "associations")
     j_cap = ctx.ed_mask.shape[0]
     dim = 7 * j_cap
     dtype = ctx.d_eds.dtype
@@ -374,6 +405,9 @@ def lm_solve(cfg: SuPerConfig, ctx: LMContext, intr: Intrinsics) -> LMResult:
         ok = torch.all(torch.isfinite(delta))
         return torch.where(ok, delta, 0.0), ok
 
+    if sol.lm_hypotheses > 1:
+        return _lm_solve_hypotheses(cfg, ctx, intr, assoc, beta0, u0,
+                                    assemble, solve)
     if sol.lm_schedule == "classic":
         return _lm_solve_classic(cfg, ctx, intr, assoc, beta0, u0, assemble,
                                  solve)
@@ -437,4 +471,46 @@ def _lm_solve_classic(cfg: SuPerConfig, ctx: LMContext, intr, assoc, beta0,
         u = torch.where(accept, u / v, u * v)
         beta = torch.where(accept, beta_new, best_beta)
         delta_prev = torch.where(accept, delta, 0.0)
+    return LMResult(beta=best_beta, cost=best_cost, final_damping=u)
+
+
+def _lm_solve_hypotheses(cfg: SuPerConfig, ctx: LMContext, intr, assoc,
+                         beta0, u0, assemble, solve) -> LMResult:
+    """H = ``lm_hypotheses`` dampings a trip (the JAX package's
+    ``_lm_solve_hypotheses``; ``lm_schedule`` is not read): one assembly at
+    the accepted point, H cold-started solves with u v^-(H-1), ..., u v^-1,
+    u (under ``pairs_fused`` H launches of K1 or K1b over the one pair
+    table, under ``pcg_pallas`` H of K3), H candidate costs, the least
+    taken (the first on ties; a non-finite step's cost is inf); accepted
+    if it beats the best cost, u continuing from its damping / v, else
+    u v."""
+    hyp = cfg.solver.lm_hypotheses
+    v = cfg.solver.lm_damping_factor
+    j_cap = beta0.shape[0]
+    ladder = v ** torch.arange(-(hyp - 1), 1, dtype=beta0.dtype,
+                               device=beta0.device)
+    beta, best_beta = beta0, beta0
+    best_cost = torch.full((), 1e10, dtype=beta0.dtype, device=beta0.device)
+    u = u0
+    for _ in range(cfg.solver.num_iterations):
+        jtj, jtr, _ = assemble(beta)
+        us = u * ladder
+        cands, costs = [], []
+        for h in range(hyp):
+            delta, ok = solve(jtj, jtr, us[h], None)
+            cand = beta + delta.reshape(j_cap, 7)
+            with record_function("lm.cost"):
+                cost = total_cost(cfg, ctx, cand, intr, assoc)
+            cands.append(cand)
+            costs.append(torch.where(ok, cost, float("inf")))
+        # A (1,) index: a 0-dim tensor index would be read on the host.
+        costs = torch.stack(costs)
+        h_star = torch.argmin(costs).reshape(1)
+        cost_star = costs.index_select(0, h_star)[0]
+        accept = cost_star < best_cost
+        beta_new = torch.stack(cands).index_select(0, h_star)[0]
+        best_beta = torch.where(accept, beta_new, best_beta)
+        best_cost = torch.where(accept, cost_star, best_cost)
+        u = torch.where(accept, us.index_select(0, h_star)[0] / v, u * v)
+        beta = torch.where(accept, beta_new, best_beta)
     return LMResult(beta=best_beta, cost=best_cost, final_damping=u)

@@ -53,13 +53,30 @@ from super_tpu_torch.ops.bilinear import (
 )
 
 
-class LMContext(NamedTuple):
-    """Per-frame constants of the LM solve (tuple layout)."""
+class DenseAdd(NamedTuple):
+    """Rows summed into a bf16 matrix without an f32 copy of it: the rows
+    are summed by rank among their distinct destinations (``plan``), and
+    each rank's sum is added to its 7 elements ``dest`` (R, 7) of the flat
+    matrix and rounded once.  Ranks past the last distinct destination
+    repeat rank 0's sum and elements (``src`` 0), so that every write to
+    an element carries one value."""
 
-    sf_mask: torch.Tensor          # (Np,) active surfels, padded slot order
+    plan: SegmentPlan
+    src: torch.Tensor    # (R,) rank whose sum each rank writes
+    dest: torch.Tensor   # (R, 7) flat matrix elements of each rank
+
+
+class LMContext(NamedTuple):
+    """Per-frame constants of the LM solve.  The tuple assembly stores the
+    surfel fields in the layout's padded slot order with the anchors per
+    tuple (``tuple_knn``); the scatter assembly (``layout`` None) keeps the
+    surfel order with each slot's anchors (``sf_knn_idx``, ``sf_knn``,
+    ``sf_diff``)."""
+
+    sf_mask: torch.Tensor          # (Np,) active surfels
     sf_knn_w: torch.Tensor         # (K, Np)
     sf_points: torch.Tensor        # (3, Np)
-    tuple_knn: torch.Tensor        # (K*3, T) anchor positions per tuple
+    tuple_knn: Optional[torch.Tensor]   # (K*3, T) anchor positions per tuple
     trg_points: torch.Tensor       # (3, P)
     trg_norms: torch.Tensor        # (3, P)
     trg_index_map: torch.Tensor    # (H, W)
@@ -69,14 +86,25 @@ class LMContext(NamedTuple):
     ed_pair_mask: torch.Tensor     # (J, K_ed)
     d_eds: torch.Tensor            # (J, K_ed, 3) g_i - g_j
     ed_skew: torch.Tensor          # (J, K_ed, 3, 3)
-    layout: assembly.TupleLayout
-    slot_tuple: torch.Tensor       # (Np,) tuple id of every padded slot
+    layout: Optional[assembly.TupleLayout]
+    slot_tuple: Optional[torch.Tensor]  # (Np,) tuple id of every padded slot
     # Fixed-order sums of the graph terms, sorted once a frame: the ARAP
-    # J^T r rows by node; with pairs_fused the graph rows by pair rank,
-    # else the graph blocks' rows by (matrix row, node column).
+    # J^T r rows by node; with pairs_fused the graph rows by pair rank; in
+    # the dense matrix the graph blocks' rows by (matrix row, node column)
+    # (``dense_add`` with a bf16 matrix), in node-pair blocks by node pair.
     arap_plan: Optional[SegmentPlan] = None
     graph_plan: Optional[SegmentPlan] = None
     block_plan: Optional[SegmentPlan] = None
+    dense_add: Optional[DenseAdd] = None
+    node_block_plan: Optional[SegmentPlan] = None
+    # Node-pair blocks of the data term: the tuple Grams' (expand_plan), or
+    # each slot's with the scatter assembly, a plan per assembly chunk.
+    expand_plan: Optional[SegmentPlan] = None
+    chunk_plans: Optional[tuple] = None
+    jtr_plan: Optional[SegmentPlan] = None   # scatter: slot anchors' rows
+    sf_knn_idx: Optional[torch.Tensor] = None   # (K, Np)
+    sf_knn: Optional[torch.Tensor] = None       # (K*3, Np) k-major
+    sf_diff: Optional[torch.Tensor] = None      # (K*3, Np)
 
 
 class Assoc(NamedTuple):
@@ -89,16 +117,36 @@ class Assoc(NamedTuple):
 
 def _check_supported(cfg: SuPerConfig):
     sol = cfg.solver
-    dense = sol.linear_solver in ("cholesky", "pcg", "pcg_pallas")
-    if sol.assembly_mode != "tuple" or cfg.num_neighbors != 4 or \
-            sol.jtj_dtype != "f32" or \
-            not (sol.linear_solver == "pairs_fused" or dense) or \
-            (dense and sol.assembly_expand != "pairs"):
+    if cfg.num_neighbors != 4:
         raise NotImplementedError(
-            "the port runs the tuple assembly (K=4) in f32 with the "
-            "pairs_fused solver, or with the pair expansion and the "
-            "cholesky, pcg or pcg_pallas solver; other assembly modes, "
-            "expansions and solvers are not ported")
+            "num_neighbors != 4 has no reference to hold the port to: the "
+            "JAX package's fusion fails there (tracking leaves no surfels, "
+            "then add_candidates packs banks of two anchor counts)")
+    if sol.linear_solver not in ("pairs_fused", "cholesky", "pcg",
+                                 "pcg_pallas"):
+        raise NotImplementedError(
+            f"linear_solver {sol.linear_solver!r}: the port runs "
+            f"pairs_fused, cholesky, pcg and pcg_pallas")
+    if sol.linear_solver == "pairs_fused" and sol.assembly_mode != "tuple":
+        raise ValueError("linear_solver='pairs_fused' requires the tuple "
+                         "assembly with the pair layout")
+
+
+def jtj_form(cfg: SuPerConfig) -> str:
+    """How the assembly holds J^T J: ``"pairs"``, the (P, 49) pair form of
+    ``pairs_fused``; ``"dense"``, the (7J, 7J) matrix from the pair
+    expansion (``assembly_expand="pairs"``), stored in ``jtj_dtype``;
+    ``"blocks"``, (J J, 49) f32 node-pair blocks (the other expansions and
+    the scatter assembly), made the dense matrix at the end.  The JAX
+    package keeps the blocks as (J, J, 7, 7) up to J 512 and sums into the
+    dense matrix above, for the TPU's tile padding; on the card both hold
+    the same bytes, so the port keeps one layout."""
+    sol = cfg.solver
+    if sol.linear_solver == "pairs_fused":
+        return "pairs"
+    if sol.assembly_mode == "tuple" and sol.assembly_expand == "pairs":
+        return "dense"
+    return "blocks"
 
 
 def prepare_lm(cfg: SuPerConfig, surfels: SurfelState, graph: GraphState,
@@ -111,47 +159,77 @@ def prepare_lm(cfg: SuPerConfig, surfels: SurfelState, graph: GraphState,
     self_idx = torch.arange(j_cap, dtype=torch.int32, device=dev)
     nb = graph.knn_idx.to(torch.int32)
     self_b = self_idx[:, None].expand(nb.shape)
-    extra_pairs = None
-    if pairs_fused:
-        # The sparse solve keeps the graph terms in pair form too: their
-        # pairs (ED edges + node diagonals) must exist in the table.
-        extra_pairs = torch.cat([
-            torch.stack([self_b.reshape(-1), nb.reshape(-1)], dim=1),
-            torch.stack([self_idx, self_idx], dim=1)])
-    layout = assembly.build_tuple_layout(
-        surfels.knn_idx, surfels.active, j_cap,
-        tuple_cap=sol.assembly_tuple_cap, pad_group=sol.assembly_pad_group,
-        chunk=sol.assembly_chunk, pair_cap=sol.assembly_pair_cap,
-        extra_pairs=extra_pairs)
-    if pairs_fused:
-        pk = layout.pair_key
-        lookup = assembly.pair_rank_lookup
-        layout = layout._replace(
-            diag_rank=lookup(pk, j_cap, torch.stack([self_idx, self_idx],
-                                                    -1)),
-            arap_rank=torch.stack([
-                lookup(pk, j_cap, torch.stack([nb, nb], -1)),
-                lookup(pk, j_cap, torch.stack([self_b, self_b], -1)),
-                lookup(pk, j_cap, torch.stack([nb, self_b], -1))], dim=-1),
-            arap_swap=self_b < nb)
-
-    bank = torch.cat([surfels.active[None].to(surfels.points.dtype),
-                      surfels.knn_w, surfels.points])
-    packed = bank[:, layout.sort_perm.long()][:, layout.src_pos.long()]
     k = surfels.knn_w.shape[0]
-    t_cap = layout.tuple_nodes.shape[0]
-    tk = graph.points.T[:, layout.tuple_nodes.T.long()]       # (3, K, T)
-    g = sol.assembly_pad_group
+    layout = None
+    plans = {}
+    if sol.assembly_mode == "tuple":
+        extra_pairs = None
+        if pairs_fused:
+            # The sparse solve keeps the graph terms in pair form too: their
+            # pairs (ED edges + node diagonals) must exist in the table.
+            extra_pairs = torch.cat([
+                torch.stack([self_b.reshape(-1), nb.reshape(-1)], dim=1),
+                torch.stack([self_idx, self_idx], dim=1)])
+        layout = assembly.build_tuple_layout(
+            surfels.knn_idx, surfels.active, j_cap,
+            tuple_cap=sol.assembly_tuple_cap,
+            pad_group=sol.assembly_pad_group, chunk=sol.assembly_chunk,
+            pair_cap=(sol.assembly_pair_cap if pairs_fused
+                      or sol.assembly_expand == "pairs" else 0),
+            extra_pairs=extra_pairs)
+        if pairs_fused:
+            pk = layout.pair_key
+            lookup = assembly.pair_rank_lookup
+            layout = layout._replace(
+                diag_rank=lookup(pk, j_cap, torch.stack([self_idx, self_idx],
+                                                        -1)),
+                arap_rank=torch.stack([
+                    lookup(pk, j_cap, torch.stack([nb, nb], -1)),
+                    lookup(pk, j_cap, torch.stack([self_b, self_b], -1)),
+                    lookup(pk, j_cap, torch.stack([nb, self_b], -1))],
+                    dim=-1),
+                arap_swap=self_b < nb)
+        bank = torch.cat([surfels.active[None].to(surfels.points.dtype),
+                          surfels.knn_w, surfels.points])
+        packed = bank[:, layout.sort_perm.long()][:, layout.src_pos.long()]
+        t_cap = layout.tuple_nodes.shape[0]
+        tk = graph.points.T[:, layout.tuple_nodes.T.long()]   # (3, K, T)
+        fields = dict(
+            sf_mask=layout.slot_valid & (packed[0] > 0.5),
+            sf_knn_w=packed[1:1 + k], sf_points=packed[1 + k:4 + k],
+            tuple_knn=tk.movedim(0, 1).reshape(3 * k, t_cap),
+            slot_tuple=layout.block_tuple.long().repeat_interleave(
+                sol.assembly_pad_group))
+        if jtj_form(cfg) == "blocks":
+            tn = layout.tuple_nodes.long()
+            plans["expand_plan"] = _node_pair_plan(tn[:, :, None],
+                                                   tn[:, None, :], j_cap)
+    else:
+        # Scatter assembly: every slot keeps its own anchors, and its K x K
+        # blocks and K J^T r rows are summed at their node pairs and nodes;
+        # inactive slots go to a sink segment.
+        idx = surfels.knn_idx.long()
+        sf_knn = graph.points.T[:, idx].movedim(0, 1).reshape(3 * k, -1)
+        fields = dict(sf_mask=surfels.active, sf_knn_w=surfels.knn_w,
+                      sf_points=surfels.points, tuple_knn=None,
+                      slot_tuple=None, sf_knn_idx=surfels.knn_idx,
+                      sf_knn=sf_knn,
+                      sf_diff=surfels.points.repeat(k, 1) - sf_knn)
+        chunk = assembly_chunk_size(idx.shape[1], sol.assembly_chunk)
+        plans["chunk_plans"] = tuple(
+            _node_pair_plan(idx[:, s:s + chunk].T[:, :, None],
+                            idx[:, s:s + chunk].T[:, None, :], j_cap,
+                            surfels.active[s:s + chunk, None, None])
+            for s in range(0, idx.shape[1], chunk))
+        plans["jtr_plan"] = segment_plan(
+            torch.where(surfels.active[:, None], idx.T, j_cap), j_cap + 1)
 
     ed_idx = graph.knn_idx.long()
     d_eds = graph.points[:, None, :] - graph.points[ed_idx]
     index_map = frame.index_map(cfg.height, cfg.width)
-    arap_plan, graph_plan, block_plan = _graph_plans(cfg, layout, nb, self_b)
+    plans.update(_graph_plans(cfg, layout, nb, self_b))
     return LMContext(
-        sf_mask=layout.slot_valid & (packed[0] > 0.5),
-        sf_knn_w=packed[1:1 + k],
-        sf_points=packed[1 + k:4 + k],
-        tuple_knn=tk.movedim(0, 1).reshape(3 * k, t_cap),
+        **fields,
         trg_points=frame.points,
         trg_norms=frame.norms,
         trg_index_map=index_map,
@@ -163,9 +241,49 @@ def prepare_lm(cfg: SuPerConfig, surfels: SurfelState, graph: GraphState,
         d_eds=d_eds,
         ed_skew=skew(d_eds),
         layout=layout,
-        slot_tuple=layout.block_tuple.long().repeat_interleave(g),
-        arap_plan=arap_plan, graph_plan=graph_plan, block_plan=block_plan,
+        **plans,
     )
+
+
+def assembly_chunk_size(np_cap: int, target: int) -> int:
+    """The assembly's chunk of slots: ``target`` halved until it divides
+    ``np_cap`` (the JAX package's ``_cost_chunk_size``)."""
+    c = min(np_cap, target)
+    while np_cap % c != 0:
+        c //= 2
+    return max(c, 1)
+
+
+def _node_pair_plan(rows, cols, j_cap: int, valid=None):
+    """Plan of 7x7 blocks at node pairs (row node, column node), broadcast
+    together: segment r J + c of the (J J + 1, 49) block accumulator, the
+    last segment a sink for the blocks where ``valid`` is false."""
+    ids = rows.long() * j_cap + cols.long()
+    if valid is not None:
+        ids = torch.where(valid, ids, j_cap * j_cap)
+    return segment_plan(ids, j_cap * j_cap + 1)
+
+
+def _dense_add(ids) -> DenseAdd:
+    """:class:`DenseAdd` of rows with flat row ids of the (7J, 7J) matrix
+    read as (7J J, 7) rows."""
+    ids = ids.reshape(-1)
+    r = ids.shape[0]
+    sorted_ids, order = torch.sort(ids, stable=True)
+    new = torch.ones((r,), dtype=torch.bool, device=ids.device)
+    new[1:] = sorted_ids[1:] != sorted_ids[:-1]
+    rank_sorted = torch.cumsum(new, 0) - 1
+    rank = torch.empty_like(rank_sorted)
+    rank[order] = rank_sorted
+    # Every member of a run writes the same id, so repeated targets carry
+    # equal values.
+    dest = sorted_ids[:1].repeat(r)
+    dest[rank_sorted] = sorted_ids
+    pos = torch.arange(r, device=ids.device)
+    seven = torch.arange(7, device=ids.device)
+    return DenseAdd(plan=segment_plan(rank, r),
+                    src=torch.where(pos <= rank_sorted[-1], pos, 0),
+                    dest=dest[:, None] * 7 + seven[None, :])
 
 
 def _graph_blocks(cfg: SuPerConfig, nb, self_b):
@@ -187,33 +305,40 @@ def _graph_blocks(cfg: SuPerConfig, nb, self_b):
     return rows, cols
 
 
-def _graph_plans(cfg: SuPerConfig, layout, nb, self_b):
+def _graph_plans(cfg: SuPerConfig, layout, nb, self_b) -> dict:
     """The graph terms' segment plans (:class:`LMContext`)."""
     j_cap = nb.shape[0]
-    arap_plan = graph_plan = block_plan = None
+    plans = {}
     if cfg.losses.mesh_arap:
-        arap_plan = segment_plan(torch.cat([nb.reshape(-1),
-                                            self_b.reshape(-1)]), j_cap)
+        plans["arap_plan"] = segment_plan(
+            torch.cat([nb.reshape(-1), self_b.reshape(-1)]), j_cap)
     rows, cols = _graph_blocks(cfg, nb, self_b)
     if not rows:
-        return arap_plan, graph_plan, block_plan
-    if cfg.solver.linear_solver == "pairs_fused":
+        return plans
+    form = jtj_form(cfg)
+    if form == "pairs":
         ranks = []
         if cfg.losses.mesh_arap:
             ranks += list(layout.arap_rank.reshape(-1, 3).T)
         if cfg.losses.mesh_rot:
             ranks.append(layout.diag_rank)
-        graph_plan = segment_plan(torch.cat(ranks),
-                                  layout.pair_dest.shape[0])
+        plans["graph_plan"] = segment_plan(torch.cat(ranks),
+                                           layout.pair_dest.shape[0])
+        return plans
+    r = torch.cat(rows).long()
+    c = torch.cat(cols).long()
+    if form == "blocks":
+        plans["node_block_plan"] = _node_pair_plan(r, c, j_cap)
+        return plans
+    # Row i of block (r, c) is 7 entries of matrix row 7 r + i at column
+    # 7 c: segment (7 r + i) J + c of the matrix as (7J J, 7).
+    seven = torch.arange(7, device=r.device)
+    ids = (7 * r[:, None] + seven[None, :]) * j_cap + c[:, None]
+    if cfg.solver.jtj_dtype == "bf16":
+        plans["dense_add"] = _dense_add(ids)
     else:
-        # Row i of block (r, c) is 7 entries of matrix row 7 r + i at
-        # column 7 c: segment (7 r + i) J + c of the matrix as (7J J, 7).
-        r = torch.cat(rows).long()
-        c = torch.cat(cols).long()
-        seven = torch.arange(7, device=r.device)
-        ids = (7 * r[:, None] + seven[None, :]) * j_cap + c[:, None]
-        block_plan = segment_plan(ids, 7 * j_cap * j_cap)
-    return arap_plan, graph_plan, block_plan
+        plans["block_plan"] = segment_plan(ids, 7 * j_cap * j_cap)
+    return plans
 
 
 @functools.lru_cache(maxsize=None)
@@ -252,8 +377,10 @@ def _sum_k(s, k):
 
 
 def _geom(ctx: LMContext):
-    """Per-slot (mask, w (K, Np), knn (3K, Np), diff (3K, Np)); the anchor
-    positions come from the per-tuple table."""
+    """Per-slot (mask, w (K, Np), knn (3K, Np), diff (3K, Np)); in the tuple
+    layout the anchor positions come from the per-tuple table."""
+    if ctx.layout is None:
+        return ctx.sf_mask, ctx.sf_knn_w, ctx.sf_knn, ctx.sf_diff
     k = ctx.sf_knn_w.shape[0]
     knn_fm = ctx.tuple_knn[:, ctx.slot_tuple]
     diff_fm = ctx.sf_points.repeat(k, 1) - knn_fm
@@ -261,7 +388,10 @@ def _geom(ctx: LMContext):
 
 
 def _beta_fm(ctx: LMContext, beta):
-    """Per-slot anchor parameters (K, 7, Np) via the tuple table."""
+    """Per-slot anchor parameters (K, 7, Np): via the tuple table, or
+    gathered per slot without a layout."""
+    if ctx.layout is None:
+        return beta[ctx.sf_knn_idx.long()].permute(0, 2, 1)
     beta_t = beta[ctx.layout.tuple_nodes.long()]              # (T, K, 7)
     return beta_t[ctx.slot_tuple].permute(1, 2, 0)
 
@@ -357,15 +487,26 @@ def data_term_cost(cfg: SuPerConfig, ctx: LMContext, beta, intr: Intrinsics,
     return torch.sum(r * r)
 
 
-def data_rows(ctx: LMContext, beta, weight: float, assoc: Assoc):
-    """Gradient rows h (Np, 28) and residuals r (Np,) of every padded slot,
+def data_rows(ctx: LMContext, beta, weight: float, assoc: Assoc,
+              jac_dtype=None):
+    """Gradient rows h (Np, 7K) and residuals r (Np,) of every padded slot,
     masked to zeros: what kernel K2 computes in registers
-    (kernels/gram.py:data_gram), and the input of its memory form."""
+    (kernels/gram.py:data_gram), and the input of its memory form.
+
+    ``jac_dtype=torch.bfloat16`` (``solver.jac_dtype="bf16"``) runs the row
+    math in bf16 from bf16 inputs, as the JAX package's
+    ``frozen_chunk_partial_fm`` does; the rows come back as f32 (exact) and
+    r stays f32."""
     geom = _geom(ctx)
     r, mask, beta_kfm = _frozen_residual(ctx, beta, assoc, weight, geom)
-    rows = _rows_fm_batched(assoc.n, geom[1], geom[3], beta_kfm)
-    h = torch.where(mask[None], weight * rows, 0.0)
-    return h.T.contiguous(), r
+    ins = (assoc.n, geom[1], geom[3], beta_kfm)
+    scale = weight
+    if jac_dtype is not None:
+        ins = tuple(x.to(jac_dtype) for x in ins)
+        scale = float(torch.tensor(weight, dtype=jac_dtype))
+    rows = _rows_fm_batched(*ins)
+    h = torch.where(mask[None], scale * rows, 0.0)
+    return h.T.float().contiguous(), r
 
 
 def moving_rows(cfg: SuPerConfig, ctx: LMContext, beta, intr: Intrinsics,
@@ -402,32 +543,75 @@ def moving_rows(cfg: SuPerConfig, ctx: LMContext, beta, intr: Intrinsics,
 def data_normal_equations(cfg: SuPerConfig, ctx: LMContext, beta,
                           weight: float, assoc: Optional[Assoc],
                           intr: Intrinsics):
-    """Data term: (jtj, jtr (J, 7), cost), with jtj the (P, 49) pair form
-    for ``pairs_fused`` and the dense (7J, 7J) matrix otherwise.
+    """Data term: (jtj, jtr (J, 7), cost), jtj in the form of
+    :func:`jtj_form`.
 
-    Against a frozen association kernel K2 computes each slot's row and
-    residual and their per-tuple Grams in one pass (kernels/gram.py:
-    data_gram); with none the moving-target rows go to memory and K2's
-    memory form reduces them (kernels/gram.py:tuple_gram).  Then the pair
-    reduction or the pair expansion.
+    Tuple assembly: against a frozen association kernel K2 computes each
+    slot's row and residual and their per-tuple Grams in one pass
+    (kernels/gram.py:data_gram); with ``jac_dtype="bf16"`` outside the
+    ``assembly_backend="pallas"`` branch (where the JAX package honours
+    it) the bf16 rows go to memory instead, and so do the moving-target
+    rows, for K2's memory form (kernels/gram.py:tuple_gram).  Then the
+    pair reduction, the pair expansion or the node-pair blocks.  Scatter
+    assembly: every slot's K x K blocks, summed at their node pairs chunk
+    by chunk onto the running sums, and its K J^T r rows at their nodes.
     """
     sol = cfg.solver
+    form = jtj_form(cfg)
+    layout = ctx.layout
+    j_cap = ctx.ed_mask.shape[0]
     if assoc is None:
         h, r = moving_rows(cfg, ctx, beta, intr, weight)
-        layout = ctx.layout
-        gram, jtr_t = tuple_gram(h, r, layout.block_tuple,
-                                 tuple_cap=layout.tuple_nodes.shape[0],
-                                 block=sol.assembly_pad_group)
-        cost = torch.sum(r * r)
+        r_gram = r
+    elif layout is None:
+        h, r = data_rows(ctx, beta, weight, assoc)
+    elif sol.jac_dtype == "bf16" and sol.assembly_backend != "pallas":
+        h, r = data_rows(ctx, beta, weight, assoc, jac_dtype=torch.bfloat16)
+        r_gram = r.to(torch.bfloat16).float()
     else:
         gram, jtr_t, cost = data_gram(ctx, beta, weight, assoc,
                                       block=sol.assembly_pad_group)
-    fold = assembly.reduce_pairs if sol.linear_solver == "pairs_fused" \
-        else assembly.expand_pairs
-    jtj, jtr7 = fold(
-        ctx.layout, gram, jtr_t, ctx.ed_mask.shape[0],
-        sum_dtype=sol.gram_sum_dtype if sol.gram_sum_dtype != "f32" else None)
+        h = None
+    if layout is None:
+        return _scatter_normal_equations(ctx, h, r, j_cap) + \
+            (torch.sum(r * r),)
+    if h is not None:
+        gram, jtr_t = tuple_gram(h, r_gram, layout.block_tuple,
+                                 tuple_cap=layout.tuple_nodes.shape[0],
+                                 block=sol.assembly_pad_group)
+        cost = torch.sum(r * r)
+    sum_dtype = sol.gram_sum_dtype if sol.gram_sum_dtype != "f32" else None
+    if form == "pairs":
+        jtj, jtr7 = assembly.reduce_pairs(layout, gram, jtr_t, j_cap,
+                                          sum_dtype=sum_dtype)
+    elif form == "dense":
+        jtj, jtr7 = assembly.expand_pairs(
+            layout, gram, jtr_t, j_cap, sum_dtype=sum_dtype,
+            acc_dtype=(torch.bfloat16 if sol.jtj_dtype == "bf16"
+                       else torch.float32))
+    else:
+        jtj, jtr7 = assembly.expand_to_blocks(layout, gram, jtr_t,
+                                              ctx.expand_plan)
     return jtj, jtr7, cost
+
+
+def _scatter_normal_equations(ctx: LMContext, h, r, j_cap: int):
+    """The scatter assembly's sums of rows h (Np, 7K) and residuals r:
+    ((J J + 1, 49) node-pair blocks, (J, 7) J^T r).  The blocks of a chunk
+    of slots (the JAX package's ``_data_normal_eq_scatter`` chunks) are
+    made and summed onto the running sums in turn, so that no more than a
+    chunk's (C K K, 49) rows exist at once."""
+    k = ctx.sf_knn_w.shape[0]
+    hk = h.reshape(-1, k, 7)
+    acc = None
+    start = 0
+    for plan in ctx.chunk_plans:
+        hc = hk[start:start + plan.ids.shape[0] // (k * k)]
+        start += hc.shape[0]
+        blocks = hc[:, :, None, :, None] * hc[:, None, :, None, :]
+        acc = segment_sum(blocks.reshape(-1, 49), plan, base=acc)
+    jtr = segment_sum((-hk * r[:, None, None]).reshape(-1, 7), ctx.jtr_plan)
+    return acc, jtr[:j_cap]
 
 
 def arap_term_residual(ctx: LMContext, beta, weight: float):
@@ -478,20 +662,25 @@ def assemble_normal_equations(cfg: SuPerConfig, ctx: LMContext, beta,
     """Normal equations and cost at ``beta``: (jtj, jtr (7J,), cost).
 
     jtj is the (P, 49) pair form (symmetric-half pair blocks) for the
-    ``pairs_fused`` solver, the dense (7J, 7J) matrix for the others.
-    ``assoc=None``: the data term's moving target (see
-    :func:`data_normal_equations`).  The graph terms' blocks and J^T r rows
-    are summed in a fixed order by the plans of :func:`prepare_lm`.
+    ``pairs_fused`` solver, the dense (7J, 7J) matrix for the others (bf16
+    with ``jtj_dtype="bf16"``).  ``assoc=None``: the data term's moving
+    target (see :func:`data_normal_equations`).  The graph terms' blocks
+    and J^T r rows are summed in a fixed order by the plans of
+    :func:`prepare_lm`.
     """
     _check_supported(cfg)
     j_cap = ctx.ed_mask.shape[0]
+    dim = 7 * j_cap
     losses = cfg.losses
-    layout = ctx.layout
-    pairs_fused = cfg.solver.linear_solver == "pairs_fused"
-    if pairs_fused:
-        jtj = beta.new_zeros((layout.pair_dest.shape[0], 49))
+    form = jtj_form(cfg)
+    acc_dtype = torch.bfloat16 if cfg.solver.jtj_dtype == "bf16" else \
+        beta.dtype
+    if form == "pairs":
+        jtj = beta.new_zeros((ctx.layout.pair_dest.shape[0], 49))
+    elif form == "dense":
+        jtj = beta.new_zeros((dim, dim), dtype=acc_dtype)
     else:
-        jtj = beta.new_zeros((7 * j_cap, 7 * j_cap))
+        jtj = beta.new_zeros((j_cap * j_cap + 1, 49))
     jtr = beta.new_zeros((j_cap, 7))
     cost = beta.new_zeros(())
     if losses.sf_point_plane:
@@ -508,13 +697,13 @@ def assemble_normal_equations(cfg: SuPerConfig, ctx: LMContext, beta,
         jtr = segment_sum(torch.cat([
             -torch.einsum("rci,rc->ri", g2[:, :, a, :], r2)
             for a in range(2)]), ctx.arap_plan, base=jtr)
-        if pairs_fused:
+        if form == "pairs":
             # Distinct-pair rows under the symmetric-half convention
             # (diagonal pairs halved, off-diagonal oriented min -> max).
             b00 = torch.einsum("rci,rcj->rij", g2[:, :, 0], g2[:, :, 0])
             b11 = torch.einsum("rci,rcj->rij", g2[:, :, 1], g2[:, :, 1])
             b01 = torch.einsum("rci,rcj->rij", g2[:, :, 0], g2[:, :, 1])
-            swap = layout.arap_swap.reshape(jk)
+            swap = ctx.layout.arap_swap.reshape(jk)
             boff = torch.where(swap[:, None, None], b01.transpose(1, 2), b01)
             graph_rows += [0.5 * b00.reshape(jk, 49),
                            0.5 * b11.reshape(jk, 49), boff.reshape(jk, 49)]
@@ -526,19 +715,32 @@ def assemble_normal_equations(cfg: SuPerConfig, ctx: LMContext, beta,
         cost = cost + torch.sum(r * r)
         jtr = jtr - g * r[:, None]
         ggt = g[:, :, None] * g[:, None, :]
-        if pairs_fused:
+        if form == "pairs":
             graph_rows.append(0.5 * ggt.reshape(j_cap, 49))
         else:
             blocks.append(ggt)
     if graph_rows:
         jtj = jtj + segment_sum(torch.cat(graph_rows), ctx.graph_plan)
-    if blocks:
+    if blocks and form == "blocks":
+        jtj = segment_sum(torch.cat(blocks).reshape(-1, 49),
+                          ctx.node_block_plan, base=jtj)
+    elif blocks and ctx.dense_add is not None:
+        # The bf16 matrix: each element's graph rows summed in f32 and
+        # added once (the JAX package adds them one by one in bf16).
+        add = ctx.dense_add
+        sums = segment_sum(torch.cat(blocks).reshape(-1, 7), add.plan)
+        flat = jtj.reshape(-1)
+        flat[add.dest] = (flat[add.dest].float() + sums[add.src]).to(
+            flat.dtype)
+    elif blocks:
         # The blocks' rows added at (matrix row, node column): the JAX
         # package's ``jtj.at[r, c].add(blocks)``, in the same order.
-        dim = 7 * j_cap
         jtj = segment_sum(torch.cat(blocks).reshape(-1, 7), ctx.block_plan,
                           base=jtj.reshape(dim * j_cap, 7)).reshape(dim, dim)
-    return jtj, jtr.reshape(7 * j_cap), cost
+    if form == "blocks":
+        jtj = jtj[:j_cap * j_cap].reshape(j_cap, j_cap, 7, 7).permute(
+            0, 2, 1, 3).reshape(dim, dim).to(acc_dtype)
+    return jtj, jtr.reshape(dim), cost
 
 
 def total_cost(cfg: SuPerConfig, ctx: LMContext, beta, intr: Intrinsics,

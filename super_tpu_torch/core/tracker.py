@@ -106,8 +106,12 @@ def track_step(cfg: SuPerConfig, intr: Intrinsics, state: TrackerState,
             surfels, graph = apply_deformation(cfg, state.surfels,
                                                state.graph, result.beta)
         cost, damping = result.cost, result.final_damping
-        tuple_overflow = ctx.layout.overflow_count
-        pair_overflow = ctx.layout.pair_overflow
+        # No layout (scatter assembly) or no pair table: nothing overflows.
+        zero = torch.zeros((), dtype=torch.int32, device=frame.points.device)
+        lay = ctx.layout
+        tuple_overflow = zero if lay is None else lay.overflow_count
+        pair_overflow = zero if lay is None or lay.pair_overflow is None \
+            else lay.pair_overflow
     else:
         with record_function("step.graph_fit"):
             deform, cost = graph_fit(cfg, state.surfels, state.graph, frame,

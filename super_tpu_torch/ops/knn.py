@@ -53,6 +53,14 @@ def masked_knn(queries, refs, k, *, query_mask=None, ref_mask=None,
     return dists, idx
 
 
+def class_masked_knn(queries, refs, k, query_seg, ref_seg, *,
+                     query_mask=None, ref_mask=None):
+    """K nearest eligible refs of the query's own class."""
+    return masked_knn(queries, refs, k, query_mask=query_mask,
+                      ref_mask=ref_mask, query_seg=query_seg,
+                      ref_seg=ref_seg)
+
+
 def self_knn(points, k, *, mask=None, exclude_self: bool = True, seg=None):
     """KNN of a point set against itself; queries k+1 and drops the first
     column when ``exclude_self`` (the reference's update_ed pattern)."""

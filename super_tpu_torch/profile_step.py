@@ -13,7 +13,12 @@ headline with the moving-target association (K1, K2's memory form);
 with the generator's two-class segmentations; ``e2e_depth``, the headline
 with each frame's depth inferred by monodepth2 (seeded random weights,
 flip post-processing) under a ``perception.depth`` range, then
-preprocessed under ``step.preprocess``.
+preprocessed under ``step.preprocess``; the option paths
+``hypotheses`` (3 damping hypotheses a trip, K1 three times),
+``hypotheses_dense`` (``pcg_pallas`` with 2, K3 twice), ``scatter`` (the
+scatter assembly, Cholesky), ``expand_blocks`` (the tuple Grams summed
+into node-pair blocks, Cholesky) and ``bf16_pcg`` (the dense graph with
+a bf16 matrix and PCG).
 Frame 0 initialises, one frame warms up, one runs under CUDA's sync debug
 mode to find any host sync in the step, then ``--frames`` frames run with
 tracing off, each timed on the host clock around a synchronised step, and
@@ -54,7 +59,8 @@ from super_tpu_torch.data.synthetic import default_intrinsics, generate
 RANGES = ("perception.depth", "step.preprocess", "step.prepare_lm",
           "step.lm_solve", "step.graph_fit", "step.apply_deformation",
           "step.fuse_frame", "step.prune",
-          "lm.associate", "lm.assemble", "lm.solve", "lm.final_cost",
+          "lm.associate", "lm.assemble", "lm.solve", "lm.cost",
+          "lm.final_cost",
           "graph_fit.prepare", "graph_fit.loss", "graph_fit.backward",
           "graph_fit.step")
 

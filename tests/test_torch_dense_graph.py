@@ -148,19 +148,41 @@ def test_lm_workload_config_matches_bench(monkeypatch, mesh_step):
 
 # The LM paths with given depth; "semantic" is held to the bench's semantic
 # branch in tests/test_torch_autograd.py, "e2e_depth" to its
-# measure_e2e_depth in tests/test_torch_perception_pipeline.py.
+# measure_e2e_depth in tests/test_torch_perception_pipeline.py.  The option
+# paths: (base path, the solver fields they change).
+OPTION_PATHS = {
+    "hypotheses": ("lm", dict(lm_hypotheses=3)),
+    "hypotheses_dense": ("pcg_pallas", dict(lm_hypotheses=2)),
+    "scatter": ("lm", dict(assembly_mode="scatter", linear_solver="cholesky")),
+    "expand_blocks": ("lm", dict(assembly_expand="scatter",
+                                 linear_solver="cholesky")),
+    "bf16_pcg": ("dense16", dict(linear_solver="pcg", jtj_dtype="bf16")),
+}
+
+
+def _path_fields(name):
+    """(mesh step, solver fields over the bench's) of a named path."""
+    if name in OPTION_PATHS:
+        base, fields = OPTION_PATHS[name]
+        step, solver = _path_fields(base)
+        return step, dict(solver, **fields)
+    step = 16 if name == "dense16" else 30
+    solver = {} if name in ("lm", "dense16") else dict(linear_solver=name)
+    if name == "per_iteration":
+        solver = dict(association="per_iteration")
+    return step, solver
+
+
 @pytest.mark.parametrize("name", [w for w in WORKLOADS
                                   if w not in ("semantic", "e2e_depth")])
 def test_workload_config_names_bench_paths(monkeypatch, name):
     """Each named path of chip_smoke.py and profile_step.py is the bench's
     workload (mesh step 16 for dense16, else 30) with only linear_solver
     replaced for the dense-matrix solvers, and only the association for
-    per_iteration (the bench's per_iteration_hz workload); an unknown name
-    raises."""
-    step = 16 if name == "dense16" else 30
-    solver = {} if name in ("lm", "dense16") else dict(linear_solver=name)
-    if name == "per_iteration":
-        solver = dict(association="per_iteration")
+    per_iteration (the bench's per_iteration_hz workload); each option
+    path is its base path with only its option's fields changed; an
+    unknown name raises."""
+    step, solver = _path_fields(name)
     assert workload_config(name) == _bench_config(monkeypatch, step,
                                                   **solver)
     with pytest.raises(ValueError):

@@ -301,17 +301,11 @@ def test_pcg_pallas_track_node_positions(pcg_pallas_runs):
 @pytest.mark.parametrize("kw,error", [
     (dict(linear_solver="cholesky", jtj_dtype="bf16"), ValueError),
     (dict(linear_solver="pcg_pallas", jtj_dtype="bf16"), ValueError),
-    (dict(linear_solver="pcg", jtj_dtype="bf16"), NotImplementedError),
-    (dict(linear_solver="cholesky", assembly_expand="blocks"),
-     NotImplementedError),
-    (dict(linear_solver="pcg_pallas", assembly_mode="scatter"),
-     NotImplementedError),
-    (dict(linear_solver="cholesky", lm_hypotheses=2), NotImplementedError),
 ])
 def test_unported_solver_options_raise(dense_ref, kw, error):
     """jtj_dtype="bf16" needs linear_solver="pcg", as in the JAX package
-    (ValueError); the options left to a later slice raise
-    NotImplementedError instead of running something else."""
+    (ValueError).  The other options run: tests/test_torch_lm_options.py,
+    test_torch_hypotheses.py, test_torch_bf16_pcg.py."""
     cfg = port_config(_solver(dense_ref["cfg"], **kw))
     with pytest.raises(error):
         tlm.lm_solve(cfg, dense_ref["pctx"], dense_ref["pintr"])
