@@ -105,6 +105,24 @@ nonzero on every frame, a repeat bitwise), then one frame with the flow
 of the render.  The kernels line's launches of K1, ``data_gram`` and the
 segment sum are ``e2e_depth``'s, each earlier path's beside.
 
+The stereo SSIM confidence and the entry points: ``ssim_conf`` tracks 3
+headline frames with ``disable_ssim_conf=False`` (launches as the
+headline's, frame 1 twice bitwise; the confidence map's time, device
+operations, out-of-image share, mean and range) and
+``ssim_conf_reference`` holds frame 1's map and solve to the CPU path.
+After ``bench``, ``cli_data`` writes a superv1 trial (8 frames, the C++
+SuPer baseline 1.5 px off the GT) and a superv2 trial with label PNGs at
+480 x 640 into a temporary directory, rendered with each layout's
+intrinsics, and decodes them with every decoder the machine has (the
+native loader, PIL, data/png.py), each bitwise against the written RGB;
+``cli_super`` runs ``python -m super_tpu_torch.run_super``'s ``main`` in
+this process three times (the root defaults: ``tuple_gram``; the
+headline's solver flags: K1 and ``data_gram``; ``--synthetic``) and
+``cli_semantic`` runs ``run_semantic_super``'s on the superv2 trial, each
+with its launches, finite metrics, every frame evaluated and (LM) a
+reprojection error below 0.75 of the static error.  The kernels line's
+``launches_cli`` are those runs'.
+
 Launch counts are set to 0 just before a path runs and read just after.
 Each phase prints one JSON line; any failure raises and exits non-zero.  The
 run ends with a ``{"kernels": [...]}`` summary line, the card's name and
@@ -123,6 +141,7 @@ import math
 import multiprocessing
 import subprocess
 import sys
+import tempfile
 import time
 import types
 
@@ -221,7 +240,6 @@ def phase_build(parent_segsum=None):
     directory outside the checkout; the parent is loaded into
     PARENT_SEGSUM for timing beside the kernel."""
     import ctypes
-    import tempfile
 
     from super_tpu_torch.kernels import build
 
@@ -2360,6 +2378,372 @@ def phase_bench(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The stereo SSIM confidence and the entry points.
+
+# The confidence map, card against CPU path: SSIM's variances are
+# E[x^2] - mu^2 over nine f32 terms, which the two paths sum in other
+# orders (a few ULPs of 1, ~5e-7); over C2 = 9e-4 in a flat window that
+# is ~6e-4 of num / den, and so of the confidence.
+SSIM_CONF_TOL = 1e-3
+CLI_FRAMES = 8                     # frames of the V1-layout directory
+CLI_SEMANTIC_FRAMES = 6
+CLI_SIZE = (480, 640)
+CLI_MESH_STEP = 30
+# The trials' fixed intrinsics (super_tpu_torch/geometry/camera.py), which
+# the loader assumes for each layout: the directories are rendered with
+# them.
+CLI_CAMERAS = {"superv1": (883.0, 883.0, 445.06, 190.24),
+               "superv2": (768.98551924, 768.98551924, 292.8861567,
+                           291.61479526)}
+CPP_OFFSET_PX = 1.5                # the super_cpp trajectory's offset
+CLI_ITERATIONS = 10                # the CLIs' --num_optimize_iterations
+
+
+def _ssim_conf_config():
+    from super_tpu_torch.config import lm_workload_config
+
+    return lm_workload_config(480, 640, 30).replace(disable_ssim_conf=False)
+
+
+def _masked_points(cfg, intr, depth):
+    """preprocess_frame's points: invalid depth NaN, backprojected."""
+    from super_tpu_torch.core.preprocess import compute_invalid_mask
+    from super_tpu_torch.geometry.camera import backproject_depth
+
+    depth = torch.as_tensor(depth, device=intr.fx.device)
+    depth = torch.where(compute_invalid_mask(cfg, depth), float("nan"), depth)
+    return backproject_depth(depth, intr)
+
+
+def phase_ssim_conf(dev, intr):
+    """The headline with ``disable_ssim_conf=False``: the stereo SSIM
+    confidence of frame 1 on the card (its ms a call, device ms alone and
+    device operations, the share of pixels whose warped sample left the
+    image, its mean and range), PATH_FRAMES tracked frames through
+    ``_run_path`` (K1 and ``data_gram`` once a trip, the segment sum 4
+    times a trip and once at frame 0), and frame 1 tracked twice, bitwise.  Returns (cfg, frames,
+    launches); :func:`phase_ssim_reference` takes the first two."""
+    from super_tpu_torch.core.preprocess import stereo_ssim_confidence
+    from super_tpu_torch.core.tracker import init_tracker, track_step
+    from super_tpu_torch.geometry.camera import warp_stereo_coords
+
+    cfg = _ssim_conf_config()
+    seq = _sequence(cfg, intr, PATH_FRAMES + 1)
+    color = torch.as_tensor(np.ascontiguousarray(
+        seq.colors[1].transpose(2, 0, 1)), device=dev)
+    pts = _masked_points(cfg, intr, seq.depths[1])
+    conf = stereo_ssim_confidence(cfg, intr, pts, color)
+    ms = cuda_ms(lambda: stereo_ssim_confidence(cfg, intr, pts, color), 20)
+    device_ms = cuda_ms(lambda: stereo_ssim_confidence(cfg, intr, pts, color),
+                        20, queued=True)
+    ops = _device_ops(lambda: stereo_ssim_confidence(cfg, intr, pts, color))
+    grid = warp_stereo_coords(pts, intr, -0.1, cfg.height, cfg.width)
+    u = (grid[..., 0] + 1.0) * 0.5 * (cfg.width - 1)
+    v = (grid[..., 1] + 1.0) * 0.5 * (cfg.height - 1)
+    valid = ~torch.isnan(pts[2])
+    outside = valid & ((u < 0) | (u > cfg.width - 1) | (v < 0)
+                       | (v > cfg.height - 1))
+    frames = _frames(cfg, intr, PATH_FRAMES + 1, dev)
+    launches = _run_path("ssim_conf", cfg, intr, frames,
+                         {"pairs_cg": 1, "data_gram": 1})
+    state = init_tracker(cfg, frames[0])
+    a = track_step(cfg, intr, state, frames[1])
+    b = track_step(cfg, intr, state, frames[1])
+    torch.cuda.synchronize()
+    same = _same(a, b)
+    blended = frames[1].confs
+    rec = dict(phase="ssim_conf_map", pixels=cfg.height * cfg.width,
+               ms=ms, device_ms=device_ms, device_ops=ops, valid_share=float(valid.float().mean()),
+               outside_share_of_valid=float(outside.sum() / valid.sum()),
+               conf_mean=float(conf.mean()), conf_min=float(conf.min()),
+               conf_max=float(conf.max()),
+               blended_mean=float(blended.mean()),
+               blended_min=float(blended.min()),
+               blended_max=float(blended.max()), repeat_bitwise=same)
+    emit(rec)
+    if not (same and bool(torch.isfinite(conf).all())):
+        raise RuntimeError(f"ssim_conf: {rec}")
+    return cfg, frames, launches
+
+
+def phase_ssim_reference(intr, cfg, frames):
+    """Frame 1 of the ssim_conf path against the CPU path from identical
+    inputs: the confidence map (SSIM_CONF_TOL), then the LM solve (the
+    main path's 1e-4 on beta, 1e-2 on the cost)."""
+    from super_tpu_torch.core.preprocess import stereo_ssim_confidence
+
+    seq = _sequence(cfg, intr, 2)
+    color = np.ascontiguousarray(seq.colors[1].transpose(2, 0, 1))
+    cpu = torch.device("cpu")
+    maps = []
+    for d in (intr.fx.device, cpu):
+        di = _to(intr, d)
+        maps.append(stereo_ssim_confidence(
+            cfg, di, _masked_points(cfg, di, seq.depths[1]),
+            torch.as_tensor(color, device=d)).cpu())
+    map_err = float(torch.max(torch.abs(maps[0] - maps[1])))
+    res_c, res_h, cpu_s = _frame1_vs_cpu(cfg, intr, frames)
+    beta_err, cost_err = _solve_diff(res_c, res_h)
+    rec = dict(phase="ssim_conf_reference", conf_max_abs_err=map_err,
+               conf_tol=SSIM_CONF_TOL, frame1_beta_max_abs_err=beta_err,
+               frame1_cost_rel_err=cost_err / float(res_h.cost),
+               cpu_s=cpu_s)
+    emit(rec)
+    if not (map_err <= SSIM_CONF_TOL and beta_err < 1e-4
+            and rec["frame1_cost_rel_err"] < 1e-2):
+        raise RuntimeError(f"ssim_conf disagrees with the CPU path: {rec}")
+
+
+def _start_cli_sequences(pool):
+    """The CLI directories' sequences, rendered with each layout's
+    intrinsics in ``pool``: {layout: future}."""
+    from super_tpu_torch.data.synthetic import generate
+
+    h, w = CLI_SIZE
+    return {layout: pool.submit(
+        generate, CLI_FRAMES, h, w,
+        intr=types.SimpleNamespace(fx=fx, fy=fy, cx=cx, cy=cy), seed=SEED,
+        num_classes=SEMANTIC_CLASSES)
+        for layout, (fx, fy, cx, cy) in CLI_CAMERAS.items()}
+
+
+def _write_trial_dir(root, seq, seg):
+    """A SuPer-layout trial of ``seq``'s frames 0..CLI_FRAMES-1, its PNGs
+    written by data/png.py: rgb/%06d-left.png, depth/%06d.npy (the sigmoid
+    disparity that disp_to_depth turns back into the depth), with ``seg``
+    seg/%06d-left.png labels, and left_pts.npy with the GT points and a
+    ``super_cpp`` trajectory CPP_OFFSET_PX off in x and y.  Returns the
+    written RGB (T, H, W, 3) uint8 and disparities (T, H, W) f32."""
+    import os
+
+    from super_tpu_torch.data.png import write_png
+
+    for sub in ("rgb", "depth") + (("seg",) if seg else ()):
+        os.makedirs(os.path.join(root, sub))
+    min_disp, max_disp = 1.0 / 80.0, 1.0 / 0.1
+    gt, cpp, rgbs, disps = {}, {}, [], []
+    for fid in range(CLI_FRAMES):
+        name = f"{fid:06d}"
+        rgb = (np.clip(seq.colors[fid], 0, 1) * 255).astype(np.uint8)
+        write_png(os.path.join(root, "rgb", f"{name}-left.png"), rgb)
+        disp = ((1.0 / np.maximum(seq.depths[fid], 1e-6) - min_disp)
+                / (max_disp - min_disp)).astype(np.float32)
+        np.save(os.path.join(root, "depth", f"{name}.npy"), disp)
+        if seg:
+            write_png(os.path.join(root, "seg", f"{name}-left.png"),
+                      seq.segs[fid].astype(np.uint8))
+        p3 = np.concatenate([seq.gt_xy[fid], seq.gt_valid[fid][:, None]
+                             .astype(np.float32)], axis=1)
+        gt[name] = p3
+        est = p3.copy()
+        est[:, 0:2] += CPP_OFFSET_PX
+        cpp[name] = est
+        rgbs.append(rgb)
+        disps.append(disp)
+    np.save(os.path.join(root, "left_pts.npy"),
+            np.array({"gt": gt, "super_cpp": cpp}, dtype=object))
+    return np.stack(rgbs), np.stack(disps)
+
+
+def _decoder_probe():
+    """What the machine has for PNG decoding: PIL, libpng's header, the
+    shared libpng (ldconfig -p) and whether the native loader builds."""
+    from super_tpu_torch.data.superv1 import python_decoder
+    from super_tpu_torch.runtime import native_toolchain
+
+    try:
+        ldconfig = subprocess.run(["ldconfig", "-p"], capture_output=True,
+                                  text=True).stdout
+    except FileNotFoundError:
+        ldconfig = ""
+    return dict(pil=python_decoder() == "pil",
+                native_toolchain=native_toolchain() or "ok",
+                libpng=sorted({ln.split()[0] for ln in ldconfig.splitlines()
+                               if "libpng" in ln}))
+
+
+def phase_cli_data(root, sequences):
+    """Writes the superv1 and superv2 trials of ``sequences`` ({layout:
+    sequence}) under ``root`` and decodes the superv1 frames with every
+    decoder present: the RGB must equal the written frames bit for bit,
+    the depth disp_to_depth's to float32 rounding (2e-6 relative).
+    Returns {layout: (dir, sequence, (written RGB, disparities))}."""
+    import os
+
+    from super_tpu_torch.core.preprocess import disp_to_depth
+    from super_tpu_torch.data.superv1 import load_image, python_decoder
+    from super_tpu_torch.runtime import NativeSequenceLoader, native_available
+
+    emit(dict(phase="cli_probe", **_decoder_probe()))
+    dirs = {}
+    t0 = time.perf_counter()
+    for layout, seq in sequences.items():
+        path = os.path.join(root, layout)
+        written = _write_trial_dir(path, seq, seg=layout == "superv2")
+        dirs[layout] = (path, seq, written)
+    write_s = time.perf_counter() - t0
+    path, _, (rgbs, disps) = dirs["superv1"]
+    h, w = CLI_SIZE
+    want_rgb = rgbs.astype(np.float32) / 255.0
+    _, want_depth = disp_to_depth(disps, 0.1, 80.0)
+    rgb_paths = [os.path.join(path, "rgb", f"{i:06d}-left.png")
+                 for i in range(CLI_FRAMES)]
+    dep_paths = [os.path.join(path, "depth", f"{i:06d}.npy")
+                 for i in range(CLI_FRAMES)]
+    decoders, bad = {}, []
+    names = ["zlib"] + (["pil"] if python_decoder() == "pil" else []) + \
+        (["native"] if native_available() else [])
+    for name in names:
+        t1 = time.perf_counter()
+        if name == "native":
+            with NativeSequenceLoader(dep_paths, rgb_paths, h, w) as ld:
+                out = [(d, r.transpose(1, 2, 0)) for _, d, r in ld]
+        else:
+            out = [(disp_to_depth(np.load(d).astype(np.float32), 0.1,
+                                  80.0)[1], load_image(r, name))
+                   for d, r in zip(dep_paths, rgb_paths)]
+        ms = (time.perf_counter() - t1) * 1e3 / CLI_FRAMES
+        depth = np.stack([d for d, _ in out])
+        rgb = np.stack([r for _, r in out])
+        rgb_equal = rgb.dtype == np.float32 and np.array_equal(rgb, want_rgb)
+        depth_rel = float(np.max(np.abs(depth - want_depth) / want_depth))
+        decoders[name] = dict(ms_per_frame=ms, frames=len(out),
+                              rgb_bitwise=rgb_equal, depth_max_rel=depth_rel)
+        if not (len(out) == CLI_FRAMES and rgb_equal and depth_rel <= 2e-6):
+            bad.append(name)
+    emit(dict(phase="cli_data", height=h, width=w, frames=CLI_FRAMES,
+              write_s=write_s, decoders=decoders))
+    if bad:
+        raise RuntimeError(f"decoders disagree with the written frames: {bad}")
+    return dirs
+
+
+def _cli_run(name, module, argv, out_json, static, per_trip, frames,
+             fit_steps=False):
+    """``module.main(argv)`` in this process with the launch counts zeroed
+    just before and read just after.  ``per_trip``: {kernel: launches per
+    LM trip} beside the segment sum's SEGSUM_PER_TRIP a trip (or, with
+    ``fit_steps``, SEGSUM_PER_FIT_STEP a step of the autograd fit, which
+    takes CLI_ITERATIONS steps a frame) and SEGSUM_AT_INIT;
+    every other kernel must not launch.  Requires finite metrics, every
+    frame evaluated and, where ``static`` is given, a mean reprojection
+    error below 0.75 of it.  Returns (metrics, launches)."""
+    wrappers = _launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for wr in wrappers.values():
+        wr.launches = 0
+    t0 = time.perf_counter()
+    rc = module.main(argv + ["--output_json", out_json])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: wr.launches for k, wr in wrappers.items()}
+    with open(out_json) as f:
+        m = json.load(f)
+    trips = CLI_ITERATIONS * (frames - 1)
+    if fit_steps:
+        want = {k: 0 for k in wrappers}
+        want["segment_sum"] = SEGSUM_PER_FIT_STEP * trips + SEGSUM_AT_INIT
+    else:
+        per_trip = {"segment_sum": SEGSUM_PER_TRIP, **per_trip}
+        want = {k: trips * per_trip.get(k, 0) for k in wrappers}
+        want["segment_sum"] += SEGSUM_AT_INIT
+    finite = all(math.isfinite(v) for v in m.values()
+                 if isinstance(v, float))
+    tracks = static is None or m["reproj_mean"] < 0.75 * static
+    rec = dict(phase=name, argv=argv, rc=rc, loader=m.get("loader"),
+               p50_frame_ms=m["p50_frame_ms"],
+               mean_frame_ms=m["mean_frame_ms"], seconds=seconds,
+               launches=launches,
+               launches_per_frame={k: v / (frames - 1)
+                                   for k, v in launches.items() if v},
+               reproj_mean=m["reproj_mean"], frac_valid=m["frac_valid"],
+               static_error=static, num_eval_frames=m["num_eval_frames"],
+               num_surfels=m["num_surfels"], num_nodes=m["num_nodes"],
+               super_cpp_mean=m.get("super_cpp_mean"),
+               overflow={k: v for k, v in m.items()
+                         if k.startswith("overflow_")},
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    emit(rec)
+    ok = (rc == 0 and finite and tracks and launches == want
+          and m["num_eval_frames"] == frames and m["num_surfels"] > 0)
+    if not ok:
+        raise RuntimeError(f"{name}: launches {launches}, want {want}; "
+                           f"finite {finite}; tracks {tracks}; {m}")
+    return m, launches
+
+
+def _static_error(gt_xy):
+    return float(np.mean([np.linalg.norm(gt_xy[t] - gt_xy[0], axis=1).mean()
+                          for t in range(1, len(gt_xy))]))
+
+
+def phase_cli_super(root, dirs, intr):
+    """``python -m super_tpu_torch.run_super`` in process, three times: the
+    root CLI's defaults on the superv1 trial (the moving-target association
+    with Cholesky: K2's memory form, ``tuple_gram``, once a trip), the
+    headline's solver flags on it (K1 and ``data_gram`` once a trip), and
+    ``--synthetic``.  Each: the launches, finite metrics, every frame
+    evaluated, tracking (below 0.75 of the static error); on the trial the
+    C++-SuPer baseline at hypot(1.5, 1.5).  Returns {run: launches}."""
+    import os
+
+    from super_tpu_torch import run_super
+
+    path, seq, _ = dirs["superv1"]
+    size = ["--height", str(CLI_SIZE[0]), "--width", str(CLI_SIZE[1]),
+            "--mesh_step_size", str(CLI_MESH_STEP)]
+    data = size + ["--data_dir", path, "--start_id", "0", "--end_id",
+                   str(CLI_FRAMES), "--tracking_gt_file", "left_pts.npy"]
+    static = _static_error(seq.gt_xy[:CLI_FRAMES])
+    synthetic = _sequence(_ssim_conf_config(), intr, CLI_FRAMES)
+    runs = (("cli_super_default", data, {"tuple_gram": 1}, static),
+            ("cli_super_pairs", data + [
+                "--association", "per_frame", "--linear_solver",
+                "pairs_fused", "--pcg_iterations", "32",
+                "--gram_sum_dtype", "bf16"],
+             {"pairs_cg": 1, "data_gram": 1}, static),
+            ("cli_super_synthetic", size + ["--synthetic", "--num_frames",
+                                            str(CLI_FRAMES)],
+             {"tuple_gram": 1},
+             _static_error(synthetic.gt_xy[:CLI_FRAMES])))
+    out = {}
+    for name, argv, per_trip, static_px in runs:
+        m, out[name] = _cli_run(name, run_super, argv,
+                                os.path.join(root, f"{name}.json"),
+                                static_px, per_trip, CLI_FRAMES)
+        if "--data_dir" in argv:
+            cpp = m.get("super_cpp_mean")
+            if cpp is None or abs(cpp - math.hypot(CPP_OFFSET_PX,
+                                                   CPP_OFFSET_PX)) > \
+                    1e-5 * math.hypot(CPP_OFFSET_PX, CPP_OFFSET_PX):
+                raise RuntimeError(f"{name}: super_cpp_mean {cpp}")
+    return out
+
+
+def phase_cli_semantic(root, dirs):
+    """``python -m super_tpu_torch.run_semantic_super`` in process on the
+    superv2 trial, CLI_SEMANTIC_FRAMES frames with their label PNGs: no TPU
+    kernel's counterpart, the segment sum twice a fit step (10 a frame)
+    and once at frame 0; finite metrics, live surfels, and the peak memory
+    of its 1,048,576 surfel slots.  Returns the launches."""
+    import os
+
+    from super_tpu_torch import run_semantic_super
+
+    path, _, _ = dirs["superv2"]
+    _, launches = _cli_run(
+        "cli_semantic", run_semantic_super,
+        ["--height", str(CLI_SIZE[0]), "--width", str(CLI_SIZE[1]),
+         "--mesh_step_size", str(CLI_MESH_STEP), "--data_dir", path,
+         "--start_id", "0", "--end_id", str(CLI_SEMANTIC_FRAMES),
+         "--tracking_gt_file", "left_pts.npy"],
+        os.path.join(root, "cli_semantic.json"), None, {},
+        CLI_SEMANTIC_FRAMES, fit_steps=True)
+    return launches
+
+
 def _kernel_entry(name, source, replaces, launches, phase):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=launches, max_abs_err=phase["max_abs_err"],
@@ -2424,18 +2808,29 @@ def main() -> int:
     phase_perception(dev, intr)
     e2e_launches = phase_e2e_depth(dev, intr)
     phase_semantic_models(dev, intr)
+    ssim_cfg, ssim_frames, ssim_launches = phase_ssim_conf(dev, intr)
     # The timed phases are done: the workers' CPU load costs only the
     # CPU reference solves time from here on.
     pool, sequences = _start_sequences(intr, PIPELINE_SEEDS)
+    cli_sequences = _start_cli_sequences(pool)
     try:
         phase_path_reference(intr, frames)
         phase_option_reference(intr, frames)
+        phase_ssim_reference(intr, ssim_cfg, ssim_frames)
+        del ssim_frames
         per_it_launches, k2_per_it = phase_per_iteration(dev, intr, frames)
         phase_semantic_reference(dev, sem_cfg, intr, sem_frames)
         phase_pipeline(dev, intr, sequences)
+        cli_sequences = {k: f.result() for k, f in cli_sequences.items()}
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
     phase_bench(dev)
+    # This slice's entry points, on trials written to a temporary directory
+    # (the pool is idle: the CLIs' frame times are the host's own).
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as root:
+        dirs = phase_cli_data(root, cli_sequences)
+        cli_launches = phase_cli_super(root, dirs, intr)
+        cli_sem_launches = phase_cli_semantic(root, dirs)
 
     # The launches of K1, data_gram and the segment sum are those of this
     # slice's main path, the live path with monodepth2's depth; each
@@ -2445,9 +2840,18 @@ def main() -> int:
     segsum_entry = _kernel_entry(
         "segment_sum", "super_tpu_torch/csrc/segment_sum.cu", None,
         e2e_launches["segment_sum"], segsum_sem)
+    # launches_cli: the CLI runs' (cli_super_default for tuple_gram and
+    # the segment sum, cli_super_pairs for K1 and data_gram, beside the
+    # segment sum's cli_semantic count).
+    default_cli = cli_launches["cli_super_default"]
+    pairs_cli = cli_launches["cli_super_pairs"]
     segsum_entry.update(launches_lm=launches["segment_sum"],
                         launches_semantic=sem_launches["segment_sum"],
                         launches_scatter=option_launches["scatter"][
+                            "segment_sum"],
+                        launches_ssim_conf=ssim_launches["segment_sum"],
+                        launches_cli=default_cli["segment_sum"],
+                        launches_cli_semantic=cli_sem_launches[
                             "segment_sum"],
                         lm_pair_rows_ms=segsum["ms"],
                         scatter_blocks_ms=segsum_scatter["ms"])
@@ -2456,20 +2860,25 @@ def main() -> int:
                              e2e_launches["pairs_cg"], k1)
     k1_entry.update(launches_lm=launches["pairs_cg"],
                     launches_hypotheses=option_launches["hypotheses"][
-                        "pairs_cg"])
+                        "pairs_cg"],
+                    launches_ssim_conf=ssim_launches["pairs_cg"],
+                    launches_cli=pairs_cli["pairs_cg"])
     k2_entry = _kernel_entry("data_gram", "super_tpu_torch/csrc/tuple_gram.cu",
                              "super_tpu/pallas_kernels/gram.py:33",
                              e2e_launches["data_gram"], k2_fused)
-    k2_entry.update(launches_lm=launches["data_gram"])
+    k2_entry.update(launches_lm=launches["data_gram"],
+                    launches_ssim_conf=ssim_launches["data_gram"],
+                    launches_cli=pairs_cli["data_gram"])
     emit({"kernels": [
         k1_entry,
         _kernel_entry("pairs_cg_chunked",
                       "super_tpu_torch/csrc/pairs_cg.cu",
                       "super_tpu/pallas_kernels/pcg.py:177",
                       dense_launches["pairs_cg_chunked"], k1b),
-        _kernel_entry("tuple_gram", "super_tpu_torch/csrc/tuple_gram.cu",
-                      "super_tpu/pallas_kernels/gram.py:33",
-                      per_it_launches["tuple_gram"], k2_per_it),
+        dict(_kernel_entry("tuple_gram", "super_tpu_torch/csrc/tuple_gram.cu",
+                           "super_tpu/pallas_kernels/gram.py:33",
+                           per_it_launches["tuple_gram"], k2_per_it),
+             launches_cli=default_cli["tuple_gram"]),
         k2_entry,
         dict(_kernel_entry("dense_cg", "super_tpu_torch/csrc/dense_cg.cu",
                            "super_tpu/pallas_kernels/pcg.py:32",

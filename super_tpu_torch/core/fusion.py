@@ -199,22 +199,27 @@ def _merged_values(cfg: SuPerConfig, a: Dict, b: Dict, time,
 def _candidate_view(cfg: SuPerConfig, intr: Intrinsics, frame: FrameData,
                     sf_pix) -> Dict:
     """The frame candidate at each surfel's pixel: z, normal and colour
-    (and the class and class confidences where the mode reads them) are
+    (and the confidence where the SSIM blend makes it depend on the depth,
+    and the class and class confidences where the mode reads them) are
     gathered, the rest is rebuilt from the pixel as preprocess_frame builds
     it (invalid candidates carry zero normals, so they fail the gate)."""
     h, w = cfg.height, cfg.width
     fdt = frame.points.dtype
     need_seg = cfg.hard_seg or cfg.data == "superv1"
+    gather_conf = not cfg.disable_ssim_conf
     nseg = frame.seg_conf.shape[0] if cfg.method == "semantic-super" else 0
     rows = [frame.points[2:3], frame.norms, frame.colors]
+    if gather_conf:
+        rows.append(frame.confs[None])
     if need_seg:
         rows.append(frame.seg.to(fdt)[None])
     rows.append(frame.seg_conf[:nseg])
     fv = torch.cat(rows, dim=0)[:, sf_pix.long()]
     z, n, colors = fv[0], fv[1:4], fv[4:7]
-    seg = fv[7].to(torch.int32) if need_seg else \
+    off = 7 + int(gather_conf)
+    seg = fv[off].to(torch.int32) if need_seg else \
         torch.zeros(z.shape, dtype=torch.int32, device=z.device)
-    seg_conf = fv[7 + int(need_seg):]
+    seg_conf = fv[off + int(need_seg):]
     pix = sf_pix.long()
     vf = (pix // w).to(fdt)
     uf = (pix - (pix // w) * w).to(fdt)
@@ -222,10 +227,11 @@ def _candidate_view(cfg: SuPerConfig, intr: Intrinsics, frame: FrameData,
     y = (vf - intr.cy) * z / intr.fy
     nz = torch.clamp(torch.abs(n[2]), 0.26, 1.0)
     radii = torch.abs(z) / (math.sqrt(2.0) * intr.fx * nz)
-    if not cfg.disable_ssim_conf:
-        raise NotImplementedError("SSIM-blended confidences are not ported")
-    dc2 = (2.0 * uf / w - 1.0) ** 2 + (2.0 * vf / h - 1.0) ** 2
-    confs = torch.exp(-dc2 * DIVTERM)
+    if gather_conf:
+        confs = fv[7]
+    else:
+        dc2 = (2.0 * uf / w - 1.0) ** 2 + (2.0 * vf / h - 1.0) ** 2
+        confs = torch.exp(-dc2 * DIVTERM)
     return dict(points=torch.stack([x, y, z]), norms=n, colors=colors,
                 radii=radii, confs=confs, seg=seg,
                 time_stamp=torch.zeros_like(z), seg_conf=seg_conf)

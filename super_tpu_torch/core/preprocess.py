@@ -2,8 +2,9 @@
 super_tpu/core/preprocess.py).
 
 Dense and pixel-indexed: NaN marks missing depth inside the stage, and the
-FrameData boundary carries (mask, zeros).  The stereo SSIM confidence is not
-ported yet: ``disable_ssim_conf=True`` (the default) never reaches it.
+FrameData boundary carries (mask, zeros).  With ``disable_ssim_conf=False``
+each pixel's confidence is blended with the stereo SSIM confidence of the
+frame's own depth (:func:`stereo_ssim_confidence`).
 """
 
 from __future__ import annotations
@@ -18,8 +19,11 @@ from super_tpu_torch.geometry.camera import (
     Intrinsics,
     backproject_depth,
     pixel_grid,
+    warp_stereo_coords,
 )
+from super_tpu_torch.ops.bilinear import bilinear_sample_image
 from super_tpu_torch.ops.morphology import dilate, erode, find_edge_region
+from super_tpu_torch.ops.ssim import ssim
 
 DIVTERM = 1.0 / (2.0 * 0.6 * 0.6)
 
@@ -109,6 +113,27 @@ def chamfer_distance_transform(mask, step_x: float, step_y: float,
     return d
 
 
+def stereo_ssim_confidence(cfg: SuPerConfig, intr: Intrinsics, points,
+                           color, baseline_tx: float = -0.1):
+    """Depth self-consistency score (H, W) in [-1, 1]: the left image is
+    sampled through the frame's points shifted by the stereo baseline and
+    compared with itself by 3x3 SSIM, ``1 - 2 mean_c(dissimilarity)``.
+
+    ``points`` (3, H, W) carry NaN where the depth is invalid; their
+    coordinates become -10 (and +-inf the largest finite float), so the
+    sampler clamps them to the image's edge, as the JAX package's does."""
+    h, w = cfg.height, cfg.width
+    grid = warp_stereo_coords(points, intr, baseline_tx, h, w)
+    u = (grid[..., 0] + 1.0) * 0.5 * (w - 1)
+    v = (grid[..., 1] + 1.0) * 0.5 * (h - 1)
+    u = torch.nan_to_num(u, nan=-10.0)
+    v = torch.nan_to_num(v, nan=-10.0)
+    warped, _ = bilinear_sample_image(color, v.reshape(-1), u.reshape(-1))
+    warped = warped.T.reshape(3, h, w)
+    dissim = torch.mean(ssim(warped, color, kernel=3), dim=0)
+    return 1.0 - 2.0 * dissim
+
+
 def compute_invalid_mask(cfg: SuPerConfig, depth, seg=None, valid_mask=None):
     """Dataset-specific invalid-region rules; (H, W) bool."""
     h, w = depth.shape
@@ -155,11 +180,6 @@ def preprocess_frame(cfg: SuPerConfig, intr: Intrinsics, depth, color, time,
     depth, color, seg, seg_conf, valid_mask, disp_conf = (
         None if x is None else torch.as_tensor(x, device=dev)
         for x in (depth, color, seg, seg_conf, valid_mask, disp_conf))
-    if not cfg.disable_ssim_conf and disp_conf is None:
-        raise NotImplementedError(
-            "stereo SSIM confidence is not ported; pass disp_conf or keep "
-            "disable_ssim_conf=True")
-
     inval = compute_invalid_mask(cfg, depth, seg=seg, valid_mask=valid_mask)
     depth = torch.where(inval, float("nan"), depth)
 
@@ -176,6 +196,8 @@ def preprocess_frame(cfg: SuPerConfig, intr: Intrinsics, depth, color, time,
     uu, vv = pixel_grid(h, w, dev)
     dc2 = (2.0 * uu / w - 1.0) ** 2 + (2.0 * vv / h - 1.0) ** 2
     confs = torch.exp(-dc2 * DIVTERM)
+    if not cfg.disable_ssim_conf and disp_conf is None:
+        disp_conf = stereo_ssim_confidence(cfg, intr, points, color)
     if disp_conf is not None and not cfg.disable_ssim_conf:
         confs = 0.5 * confs + 0.5 * torch.sigmoid(disp_conf)
 

@@ -5,7 +5,10 @@ Each ``super_tpu_torch/csrc/<name>.cu`` compiles with ``nvcc`` for
 loads.  Nothing is built at import: the first launch builds its library, and
 :func:`build` starts several compilers at once.  Libraries go to ``build/``
 at the root of the checkout, named by a hash of the source and the flags, so
-an edited source never loads a stale binary.
+an edited source never loads a stale binary.  Each compiler writes a file of
+its own process's name and renames it into place when it succeeds, so
+processes that build the same library at once never load a partial one
+(:func:`compile_library` does the same for the host runtime's ``g++``).
 """
 
 from __future__ import annotations
@@ -37,10 +40,43 @@ def _nvcc() -> str:
     return found
 
 
+def hashed_library(directory: Path, stem: str, *inputs: bytes) -> Path:
+    """``directory/<stem>-<hash>.so``, the hash over ``inputs`` (the
+    sources and the flags that build the library)."""
+    tag = hashlib.sha256(b"".join(inputs)).hexdigest()
+    return directory / f"{stem}-{tag[:16]}.so"
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{tag[:16]}.so"
+    return hashed_library(BUILD_DIR, name, (CSRC / f"{name}.cu").read_bytes(),
+                          " ".join(NVCC_FLAGS).encode())
+
+
+def _start(cmd, out: Path):
+    """Start ``cmd`` with the output path of this process appended."""
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    proc = subprocess.Popen([*cmd, str(tmp)], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp
+
+
+def _finish(proc, tmp: Path, out: Path):
+    """(exit code, compiler output); the library renamed into place when
+    the compiler succeeded."""
+    log, _ = proc.communicate()
+    if proc.returncode == 0:
+        os.replace(tmp, out)
+    return proc.returncode, log
+
+
+def compile_library(cmd, out: Path) -> str:
+    """Run ``cmd + [output path]`` to build ``out`` (see the module
+    docstring); returns the compiler's output, raises if it fails."""
+    rc, log = _finish(*_start(cmd, out), out)
+    if rc != 0:
+        raise RuntimeError(f"build of {out.name} failed (exit {rc}):\n{log}")
+    return log
 
 
 def build(names: Iterable[str]) -> Dict[str, str]:
@@ -49,25 +85,18 @@ def build(names: Iterable[str]) -> Dict[str, str]:
     Returns each compiled kernel's compiler output (``-Xptxas -v`` reports
     registers and shared memory); raises if any compile fails.
     """
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
         out = library_path(name)
         if out.exists():
             continue
-        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out)
+        cmd = [_nvcc(), *NVCC_FLAGS, str(CSRC / f"{name}.cu"), "-o"]
+        procs[name] = (*_start(cmd, out), out)
     logs, failed = {}, []
     for name, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
-        logs[name] = log
-        if proc.returncode != 0:
-            failed.append(f"{name}: nvcc exit {proc.returncode}\n{log}")
-            continue
-        os.replace(tmp, out)
+        rc, logs[name] = _finish(proc, tmp, out)
+        if rc != 0:
+            failed.append(f"{name}: nvcc exit {rc}\n{logs[name]}")
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return logs
