@@ -123,6 +123,21 @@ with its launches, finite metrics, every frame evaluated and (LM) a
 reprojection error below 0.75 of the static error.  The kernels line's
 ``launches_cli`` are those runs'.
 
+Observation, checkpoints and the speed-of-light model: ``resume`` tracks
+the headline to frame 2, saves the state (utils/checkpoint.py), restores
+it into a state built on the card and goes on to frame 5, bitwise equal
+to an uninterrupted run; ``zbuffer`` renders the headline's 425,984-slot
+map after frame 1 with ``render_zbuffer``, bitwise the CPU path's;
+``observe`` runs SuPerPipeline on 6 headline frames with a logger and
+checkpoints every 2nd frame in a temporary directory (launches a frame as
+the headline's, every scalar finite, every PNG 480 x 640, the render's
+covered share, the checkpoints, each observation's host ms beside the
+frame p50; the kernels line's ``launches_observe``); ``sol`` measures the
+primitive costs that utils/sol.py's H100 constants came from and prints
+``bench.measure_sol``'s stages (device ms alone, events ms, floor,
+sol_frac); ``bench`` also prints the headline's ``cold_start_hz`` and
+``cold_add_deferred`` and the ``--mode lm`` rate at 6 solves.
+
 Launch counts are set to 0 just before a path runs and read just after.
 Each phase prints one JSON line; any failure raises and exits non-zero.  The
 run ends with a ``{"kernels": [...]}`` summary line, the card's name and
@@ -139,6 +154,7 @@ import dataclasses
 import json
 import math
 import multiprocessing
+import os
 import subprocess
 import sys
 import tempfile
@@ -1956,19 +1972,15 @@ def _cudnn(tf32):
 
 def _device_ops(fn):
     """Device operations (kernels, copies, memsets) one call of ``fn``
-    launches, from a torch.profiler trace."""
-    from torch.autograd import DeviceType
+    launches, from a torch.profiler trace (utils/profiling.py's, its
+    Chrome trace written to a temporary directory)."""
+    from super_tpu_torch.utils.profiling import kernel_spans, trace
 
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        fn()
-        torch.cuda.synchronize()
-    # The device timeline also mirrors host ranges; a kernel's name is
-    # never a host event's.
-    host = {e.name for e in prof.events() if e.device_type == DeviceType.CPU}
-    return sum(1 for e in prof.events()
-               if e.device_type == DeviceType.CUDA and e.name not in host)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as d:
+        with trace(d) as prof:
+            fn()
+            torch.cuda.synchronize()
+    return len(kernel_spans(prof))
 
 
 def _perception_nets():
@@ -2370,12 +2382,226 @@ def phase_pipeline(dev, intr, sequences):
 
 
 def phase_bench(dev):
-    """python -m super_tpu_torch.bench's measurement at 6 frames."""
+    """python -m super_tpu_torch.bench's measurement at 6 frames, with the
+    headline's cold start, and its ``--mode lm`` rate at 6 solves
+    (``lm_solves_hz``)."""
     from super_tpu_torch import bench
+    from super_tpu_torch.config import workload_config
 
     out = bench.measure(reps=6, device=dev)
+    out["lm_solves_hz"] = round(bench.measure_lm(workload_config("lm"), 6,
+                                                 dev), 3)
     print(json.dumps(out), flush=True)
+    if not (out["cold_start_hz"] > 0 and out["lm_solves_hz"] > 0):
+        raise RuntimeError(f"bench: {out}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# Observation, checkpoints and the speed-of-light model.
+
+OBSERVE_FRAMES = 6                 # frames of the observed pipeline
+OBSERVE_FREQ = 2                   # its save_sample_freq
+RESUME_AT, RESUME_TO = 2, 5        # resume: save after frame k, go to k + m
+SOL_ROWS = (8, 17, 28)             # gather widths of the calibration
+SOL_N = 393216                     # the calibration's indices and elements
+
+
+def phase_zbuffer(dev, cfg, intr, frames):
+    """render_zbuffer of the headline's map after frame 1 (425,984 slots)
+    on the card, bitwise against the CPU path on the same inputs; its ms a
+    call and device ms alone, and utils/profiling.py's ``chain_time`` and
+    ``loop_time`` of it."""
+    from super_tpu_torch.core.tracker import init_tracker, track_step
+    from super_tpu_torch.render.splat import render_zbuffer
+    from super_tpu_torch.utils import profiling
+
+    state, _ = track_step(cfg, intr, init_tracker(cfg, frames[0]), frames[1])
+    sf = state.surfels
+
+    def render():
+        return render_zbuffer(sf.points, sf.colors, sf.active, intr,
+                              cfg.height, cfg.width)
+
+    img = render()
+    cpu = torch.device("cpu")
+    want = render_zbuffer(sf.points.to(cpu), sf.colors.to(cpu),
+                          sf.active.to(cpu), _to(intr, cpu), cfg.height,
+                          cfg.width)
+    same = bool(torch.equal(img.cpu(), want))
+    covered = float((img != 0).any(dim=0).float().mean())
+    # utils/profiling.py's timers beside chip_smoke's own.
+    rec = dict(phase="zbuffer", slots=sf.points.shape[1],
+               active=int(sf.active.sum()), bitwise_cpu=same,
+               covered_share=covered, ms=cuda_ms(render, 20),
+               device_ms=cuda_ms(render, 20, queued=True),
+               chain_time_ms=profiling.chain_time(render, reps=20) * 1e3,
+               loop_time_ms=profiling.loop_time(
+                   lambda acc: render().sum(), torch.zeros((), device=dev),
+                   n_iter=20),
+               device_ops=_device_ops(render))
+    emit(rec)
+    if not (same and covered > 0.5):
+        raise RuntimeError(f"zbuffer: {rec}")
+
+
+def phase_resume(dev, cfg, intr, frames):
+    """Track to frame RESUME_AT, save the state, restore it into a state
+    built on the card from frame 0, and go on to RESUME_TO: the state and
+    every later lm_cost bitwise those of an uninterrupted run."""
+    from super_tpu_torch.core.tracker import init_tracker, track_step
+    from super_tpu_torch.utils.checkpoint import restore_state, save_state
+
+    def go(state, t0, t1):
+        costs = []
+        for t in range(t0, t1 + 1):
+            state, outs = track_step(cfg, intr, state, frames[t])
+            costs.append(outs.lm_cost)
+        return state, torch.stack(costs)
+
+    state0 = init_tracker(cfg, frames[0])
+    mid, _ = go(state0, 1, RESUME_AT)
+    full, costs = go(mid, RESUME_AT + 1, RESUME_TO)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as root:
+        t0 = time.perf_counter()
+        path = save_state(root, mid, step=RESUME_AT)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        restored = restore_state(path, init_tracker(cfg, frames[0]))
+        restore_s = time.perf_counter() - t0
+        size = sum(os.path.getsize(os.path.join(path, f))
+                   for f in os.listdir(path))
+    on_card = all(x.device == dev
+                  for x in torch.utils._pytree.tree_leaves(restored))
+    resumed, costs_r = go(restored, RESUME_AT + 1, RESUME_TO)
+    torch.cuda.synchronize()
+    rec = dict(phase="resume", saved_after=RESUME_AT, resumed_to=RESUME_TO,
+               bitwise_state=_same(resumed, full),
+               bitwise_lm_cost=_same(costs_r, costs), restored_on_card=on_card,
+               checkpoint_mb=size / 1e6, save_s=save_s, restore_s=restore_s,
+               lm_cost=costs.tolist())
+    emit(rec)
+    if not (rec["bitwise_state"] and rec["bitwise_lm_cost"] and on_card):
+        raise RuntimeError(f"resume: {rec}")
+
+
+def phase_observe(dev, intr):
+    """SuPerPipeline on the headline at 480 x 640 with a logger and
+    checkpoints in a temporary directory, OBSERVE_FRAMES frames with the GT
+    points, observed every OBSERVE_FREQ: launches a tracked frame as the
+    headline's, each scalar line finite, every PNG 480 x 640, the render's
+    covered share, the checkpoints, and each observation's host ms beside
+    the frame p50."""
+    from super_tpu_torch.config import workload_config
+    from super_tpu_torch.data.png import read_png
+    from super_tpu_torch.pipeline import SuPerPipeline
+
+    cfg = workload_config("lm").replace(save_sample_freq=OBSERVE_FREQ)
+    seq = _sequence(cfg, intr, OBSERVE_FRAMES)
+    n = OBSERVE_FRAMES
+    wrappers = _launch_counts()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_observe_") as root:
+        logdir = os.path.join(root, "logs")
+        ckdir = os.path.join(root, "ckpt")
+        pipe = SuPerPipeline(cfg, intr, logdir=logdir, checkpoint_dir=ckdir,
+                             device=dev)
+        for w in wrappers.values():
+            w.launches = 0
+        summary = pipe.run(seq.depths[:n], seq.colors[:n],
+                           gt_xy=seq.gt_xy[:n], gt_valid=seq.gt_valid[:n])
+        launches = {k: w.launches for k, w in wrappers.items()}
+        with open(os.path.join(logdir, "scalars.jsonl")) as f:
+            lines = [json.loads(line) for line in f]
+        steps = list(range(0, n, OBSERVE_FREQ))
+        shapes = {}
+        for tag in ("raw", "disparity", "render", "uncertainty"):
+            for step in steps:
+                img = read_png(os.path.join(logdir, "visualization", tag,
+                                            f"{step:08d}.png"))
+                shapes[f"{tag}/{step}"] = list(img.shape)
+                if tag == "render":
+                    covered = float((img != 0).any(axis=-1).mean())
+        checkpoints = sorted(os.listdir(ckdir))
+        plots = sorted(os.listdir(os.path.join(logdir, "plots")))
+    trips = cfg.solver.num_iterations * (n - 1)
+    want = {k: 0 for k in wrappers}
+    want.update(pairs_cg=trips, data_gram=trips,
+                segment_sum=SEGSUM_PER_TRIP * trips + SEGSUM_AT_INIT)
+    tags = {s: sorted(d["tag"] for d in lines if d["step"] == s)
+            for s in steps}
+    rec = dict(phase="observe", frames=n, save_sample_freq=OBSERVE_FREQ,
+               launches=launches, scalar_lines=len(lines),
+               scalars_per_step={s: len(v) for s, v in tags.items()},
+               png_shapes=shapes, render_covered_share=covered,
+               checkpoints=checkpoints, plots=plots,
+               observe_ms=[t * 1e3 for t in pipe.observe_times],
+               p50_frame_ms=summary["p50_frame_ms"],
+               reproj_mean=summary["reproj_mean"],
+               frac_valid=summary["frac_valid"])
+    emit(rec)
+    ok = (launches == want
+          and all(math.isfinite(d["value"]) for d in lines)
+          and tags[0] == ["reprojerr/mean", "reprojerr/std"]
+          and all(len(tags[s]) == 13 for s in steps[1:])
+          and all(v == [cfg.height, cfg.width, 3] for v in shapes.values())
+          and covered > 0.5
+          and checkpoints == [f"step_{s:08d}" for s in steps]
+          and plots == ["reproj_over_time", "reproj_per_point",
+                        "trajectories"]
+          and len(pipe.observe_times) == len(steps))
+    if not ok:
+        raise RuntimeError(f"observe: {rec}, launches want {want}")
+    return launches
+
+
+def phase_sol(dev):
+    """The H100 constants of utils/sol.py, measured (device time alone,
+    back-to-back calls): the (F, SOL_N) f32 gather at SOL_N random indices
+    for F in SOL_ROWS, fitted to a fixed cost plus bytes at a random-access
+    rate; a scatter of SOL_N f32 elements to random places; a sort of SOL_N
+    int64 keys packing three; one launch of a one-element kernel.  Then
+    ``bench.measure_sol`` on the headline: each stage's device ms alone,
+    its events ms, floor and sol_frac."""
+    from super_tpu_torch import bench
+    from super_tpu_torch.config import workload_config
+    from super_tpu_torch.utils import sol
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    idx = torch.randint(0, SOL_N, (SOL_N,), device=dev, generator=g)
+    gather = {}
+    for f in SOL_ROWS:
+        src = torch.rand((f, SOL_N), device=dev, generator=g)
+        gather[f] = cuda_ms(lambda: torch.index_select(src, 1, idx), 20,
+                            queued=True)
+    x = np.array(SOL_ROWS, float)
+    y = np.array([gather[f] for f in SOL_ROWS])
+    slope, fixed = np.polyfit(x, y, 1)           # ms a row, ms
+    rate = SOL_N * 4 / (slope * 1e6)             # GB/s
+    dst = torch.zeros(SOL_N, device=dev)
+    vals = torch.rand(SOL_N, device=dev, generator=g)
+    scatter = cuda_ms(lambda: dst.scatter_(0, idx, vals), 20, queued=True)
+    keys = torch.randint(0, 2 ** 60, (SOL_N,), device=dev, generator=g)
+    sort = cuda_ms(lambda: torch.sort(keys), 20, queued=True)
+    one = torch.zeros(1, device=dev)
+    launch = cuda_ms(lambda: one.add_(1.0), 200, queued=True)
+    calib = dict(gather_ms={str(f): gather[f] for f in SOL_ROWS},
+                 gather_fixed_ms=float(fixed), rand_gather_gbps=float(rate),
+                 scatter_ns_per_elem=scatter * 1e6 / SOL_N,
+                 sort3_ms_per_393k=sort * 393216 / SOL_N, launch_ms=launch)
+    module = dict(gather_fixed_ms=sol.GATHER_FIXED_MS,
+                  rand_gather_gbps=sol.RAND_GATHER_GBPS,
+                  scatter_ns_per_elem=sol.SCATTER_NS_PER_ELEM,
+                  sort3_ms_per_393k=sol.SORT3_MS_PER_393K,
+                  launch_ms=sol.LAUNCH_MS)
+    report = bench.measure_sol(workload_config("lm"), 40, dev)
+    rec = dict(phase="sol", calibration=calib, module_constants=module,
+               stages=report["stages"], floors=report["floors"])
+    emit(rec)
+    stages = report["stages"]
+    if not (rate > 0 and all(k in stages and stages[k]["device_ms"] > 0
+                             for k in ("prepare", "assoc", "assemble",
+                                       "solve", "fuse"))):
+        raise RuntimeError(f"sol: {rec}")
 
 
 # ---------------------------------------------------------------------------
@@ -2515,7 +2741,6 @@ def _write_trial_dir(root, seq, seg):
     seg/%06d-left.png labels, and left_pts.npy with the GT points and a
     ``super_cpp`` trajectory CPP_OFFSET_PX off in x and y.  Returns the
     written RGB (T, H, W, 3) uint8 and disparities (T, H, W) f32."""
-    import os
 
     from super_tpu_torch.data.png import write_png
 
@@ -2569,7 +2794,6 @@ def phase_cli_data(root, sequences):
     decoder present: the RGB must equal the written frames bit for bit,
     the depth disp_to_depth's to float32 rounding (2e-6 relative).
     Returns {layout: (dir, sequence, (written RGB, disparities))}."""
-    import os
 
     from super_tpu_torch.core.preprocess import disp_to_depth
     from super_tpu_torch.data.superv1 import load_image, python_decoder
@@ -2687,7 +2911,6 @@ def phase_cli_super(root, dirs, intr):
     ``--synthetic``.  Each: the launches, finite metrics, every frame
     evaluated, tracking (below 0.75 of the static error); on the trial the
     C++-SuPer baseline at hypot(1.5, 1.5).  Returns {run: launches}."""
-    import os
 
     from super_tpu_torch import run_super
 
@@ -2728,7 +2951,6 @@ def phase_cli_semantic(root, dirs):
     kernel's counterpart, the segment sum twice a fit step (10 a frame)
     and once at frame 0; finite metrics, live surfels, and the peak memory
     of its 1,048,576 surfel slots.  Returns the launches."""
-    import os
 
     from super_tpu_torch import run_semantic_super
 
@@ -2787,6 +3009,8 @@ def main() -> int:
                  only=("dense_blocks",))
     del state, ctx, pcg_ctx
     phase_repeat(dev, cfg, intr, frames)
+    phase_resume(dev, cfg, intr, frames)
+    phase_zbuffer(dev, cfg, intr, frames)
     phase_reference(dev, cfg, intr, frames)
     dense_cfg, dense_launches = phase_dense(dev, intr, frames)
     state = init_tracker(dense_cfg, frames[0])
@@ -2809,6 +3033,8 @@ def main() -> int:
     e2e_launches = phase_e2e_depth(dev, intr)
     phase_semantic_models(dev, intr)
     ssim_cfg, ssim_frames, ssim_launches = phase_ssim_conf(dev, intr)
+    observe_launches = phase_observe(dev, intr)
+    phase_sol(dev)
     # The timed phases are done: the workers' CPU load costs only the
     # CPU reference solves time from here on.
     pool, sequences = _start_sequences(intr, PIPELINE_SEEDS)
@@ -2850,6 +3076,7 @@ def main() -> int:
                         launches_scatter=option_launches["scatter"][
                             "segment_sum"],
                         launches_ssim_conf=ssim_launches["segment_sum"],
+                        launches_observe=observe_launches["segment_sum"],
                         launches_cli=default_cli["segment_sum"],
                         launches_cli_semantic=cli_sem_launches[
                             "segment_sum"],
@@ -2862,12 +3089,14 @@ def main() -> int:
                     launches_hypotheses=option_launches["hypotheses"][
                         "pairs_cg"],
                     launches_ssim_conf=ssim_launches["pairs_cg"],
+                    launches_observe=observe_launches["pairs_cg"],
                     launches_cli=pairs_cli["pairs_cg"])
     k2_entry = _kernel_entry("data_gram", "super_tpu_torch/csrc/tuple_gram.cu",
                              "super_tpu/pallas_kernels/gram.py:33",
                              e2e_launches["data_gram"], k2_fused)
     k2_entry.update(launches_lm=launches["data_gram"],
                     launches_ssim_conf=ssim_launches["data_gram"],
+                    launches_observe=observe_launches["data_gram"],
                     launches_cli=pairs_cli["data_gram"])
     emit({"kernels": [
         k1_entry,

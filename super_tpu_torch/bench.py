@@ -2,6 +2,9 @@
 line.
 
     python -m super_tpu_torch.bench [--reps 30] [--no_dense] [--cpu]
+                                    [--mode step|lm]
+                                    [--association per_frame|per_iteration]
+                                    [--sol]
                                     [--height 480 --width 640
                                      --mesh_step_size 30]
 
@@ -28,8 +31,20 @@ calls (``max(4, that // 2)`` for RAFT-Stereo).  The port has no
 device-resident frame loop yet, so each loop runs on the host with one
 synchronisation at the end (``"loop": "host"``).  The overflow counters'
 maxima over the timed frames ride along (``overflow``), so that a run
-which drops residuals cannot pass for a faster one.  On the card unless
-``--cpu``.
+which drops residuals cannot pass for a faster one.  Beside the headline,
+as the root bench has them, the start-up transient: ``cold_start_hz``, a
+second run of ``reps`` frames from the frame-0 state (the first run built
+each kernel at first use), and its deferred adds, ``cold_add_deferred``.
+
+``--association`` measures the headline with that association alone (no
+sweep).  ``--mode lm`` measures LM frame-solves/s: ``prepare_lm`` once on
+frame 1, then ``lm_solve`` ``reps`` times.  ``--sol`` adds the root
+bench's per-stage speed-of-light block (``sol``, utils/sol.py): the
+headline's ``prepare_lm``, identity ``associate``, one assembly, one K1
+solve and one fusion, each a stage, its ``ms`` the device time alone (the
+kernels' sum under ``torch.profiler``, over the calls: ``device_ms``)
+beside the time between CUDA events (``events_ms``); on the CPU the host
+clock's (``host_ms``).  It writes no file.  On the card unless ``--cpu``.
 """
 
 from __future__ import annotations
@@ -44,6 +59,7 @@ import numpy as np
 import torch
 
 METRIC = "tracked frames/s per chip (full step: 10-iter LM + fusion)"
+LM_METRIC = "LM frame-solves/s per chip (10 damped GN iterations)"
 OVERFLOW = (("tuple", "tuple_overflow"), ("pair", "pair_overflow"),
             ("add_deferred", "add_overflow"), ("free", "free_exhausted"))
 
@@ -53,13 +69,12 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def measure_step(cfg, reps: int, device, seed: int = 0):
-    """(frames/s of the timed pass, overflow maxima over it).  With a
-    ``depth_model`` in ``cfg`` each frame's depth comes from that net
-    (seeded random weights) on the card, inside the timed loop."""
+def _workload(cfg, device, seed: int = 0):
+    """(intr, frame_of): the synthetic sequence's three frames, and with a
+    ``depth_model`` in ``cfg`` each frame's depth from that net (seeded
+    random weights) inferred at each call."""
     import super_tpu_torch  # noqa: F401  (TF32 off)
     from super_tpu_torch.core.preprocess import preprocess_frame
-    from super_tpu_torch.core.tracker import init_tracker, track_step
     from super_tpu_torch.data.synthetic import default_intrinsics, generate
 
     h, w = cfg.height, cfg.width
@@ -74,17 +89,27 @@ def measure_step(cfg, reps: int, device, seed: int = 0):
             seg=seq.segs[t] if semantic else None,
             seg_conf=seq.seg_confs[t] if semantic else None, device=device)
             for t in range(3)]
-        frame_of = frames.__getitem__
-    else:
-        from super_tpu_torch.factory import build_models, predict_frame_inputs
+        return intr, frames.__getitem__
+    from super_tpu_torch.factory import build_models, predict_frame_inputs
 
-        models = build_models(cfg, seed=seed, device=device)
-        colors_dev = torch.as_tensor(colors, device=device)
+    models = build_models(cfg, seed=seed, device=device)
+    colors_dev = torch.as_tensor(colors, device=device)
 
-        def frame_of(t):
-            depth = predict_frame_inputs(cfg, models, colors_dev[t])["depth"]
-            return preprocess_frame(cfg, intr, depth, colors_dev[t],
-                                    float(t), device=device)
+    def frame_of(t):
+        depth = predict_frame_inputs(cfg, models, colors_dev[t])["depth"]
+        return preprocess_frame(cfg, intr, depth, colors_dev[t], float(t),
+                                device=device)
+
+    return intr, frame_of
+
+
+def measure_step(cfg, reps: int, device, seed: int = 0, cold: bool = False):
+    """(frames/s of the timed pass, overflow maxima over it).  With
+    ``cold`` the overflow dict also holds ``cold_start_hz`` and
+    ``cold_add_deferred``: a third run, from the frame-0 state again."""
+    from super_tpu_torch.core.tracker import init_tracker, track_step
+
+    intr, frame_of = _workload(cfg, device, seed)
 
     def run(state):
         diag = None
@@ -95,14 +120,131 @@ def measure_step(cfg, reps: int, device, seed: int = 0):
             diag = d if diag is None else torch.maximum(diag, d)
         return state, diag
 
-    state, _ = run(init_tracker(cfg, frame_of(0)))   # warm-up, converges
+    def timed(state):
+        _sync(device)
+        tic = time.perf_counter()
+        state, diag = run(state)
+        _sync(device)
+        return state, diag, time.perf_counter() - tic
+
+    # track_step makes new tensors and writes none of its input state's
+    # (tests/test_torch_bench.py), so state0 serves the cold run too.
+    state0 = init_tracker(cfg, frame_of(0))
+    state, _ = run(state0)                 # warm-up: builds, converges
+    state, diag, dt = timed(state)
+    keys = [k for k, _ in OVERFLOW]
+    overflow = dict(zip(keys, diag.tolist()))
+    if cold:
+        _, diag_c, dt_c = timed(state0)
+        overflow["cold_start_hz"] = round(reps / dt_c, 3)
+        overflow["cold_add_deferred"] = dict(zip(keys, diag_c.tolist()))[
+            "add_deferred"]
+    return reps / dt, overflow
+
+
+def measure_lm(cfg, reps: int, device, seed: int = 0) -> float:
+    """LM frame-solves/s: ``prepare_lm`` once on frame 1 from the frame-0
+    state, then ``lm_solve`` ``reps`` times after one warm-up solve."""
+    from super_tpu_torch.core.lm import lm_solve
+    from super_tpu_torch.core.losses import prepare_lm
+    from super_tpu_torch.core.tracker import init_tracker
+
+    intr, frame_of = _workload(cfg, device, seed)
+    state0 = init_tracker(cfg, frame_of(0))
+    ctx = prepare_lm(cfg, state0.surfels, state0.graph, frame_of(1))
+    lm_solve(cfg, ctx, intr)
     _sync(device)
     tic = time.perf_counter()
-    state, diag = run(state)
+    for _ in range(reps):
+        lm_solve(cfg, ctx, intr)
     _sync(device)
-    dt = time.perf_counter() - tic
-    overflow = dict(zip((k for k, _ in OVERFLOW), diag.tolist()))
-    return reps / dt, overflow
+    return reps / (time.perf_counter() - tic)
+
+
+def _stage_ms(fn, reps: int, device) -> dict:
+    """ms a call over ``reps`` calls after two warm-up calls: on the card
+    the device work alone (``device_ms``) and the time between CUDA
+    events (``events_ms``); on the CPU the host clock's (``host_ms``)."""
+    from super_tpu_torch.utils.profiling import kernel_spans
+
+    for _ in range(2):
+        fn()
+    _sync(device)
+    if torch.device(device).type != "cuda":
+        tic = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return dict(host_ms=(time.perf_counter() - tic) * 1e3 / reps)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        _sync(device)
+    device_us = sum(k1 - k0 for k0, k1, _ in kernel_spans(prof))
+    return dict(device_ms=device_us / 1e3 / reps,
+                events_ms=start.elapsed_time(end) / reps)
+
+
+def measure_sol(cfg, reps: int, device, seed: int = 0) -> dict:
+    """The root bench's ``measure_sol`` on the port: each hot stage of the
+    headline workload timed alone on frame 1's inputs, against its floor
+    (utils/sol.py).  {"stages": sol_report's entries, achieved = the
+    device time alone on the card, the host clock's on the CPU, with
+    _stage_ms's unrounded times beside; "floors": every floor in ms}."""
+    from super_tpu_torch.core import fusion
+    from super_tpu_torch.core.lm import _pairs_fused_solve
+    from super_tpu_torch.core.losses import (
+        assemble_normal_equations,
+        associate,
+        prepare_lm,
+    )
+    from super_tpu_torch.core.tracker import init_tracker
+    from super_tpu_torch.utils import sol
+
+    intr, frame_of = _workload(cfg, device, seed)
+    state0 = init_tracker(cfg, frame_of(0))
+    frame1 = frame_of(1)
+    ctx = prepare_lm(cfg, state0.surfels, state0.graph, frame1)
+    j_cap = cfg.capacity.node_capacity
+    beta0 = torch.zeros((j_cap, 7), device=device)
+    beta0[:, 0] = 1.0
+    assoc = associate(cfg, ctx, intr)
+    acc, jtr, _ = assemble_normal_equations(cfg, ctx, beta0, intr, assoc)
+    u = torch.tensor(10.0, device=device)
+    stages = {
+        "prepare": lambda: prepare_lm(cfg, state0.surfels, state0.graph,
+                                      frame1),
+        "assoc": lambda: associate(cfg, ctx, intr),
+        "assemble": lambda: assemble_normal_equations(cfg, ctx, beta0, intr,
+                                                      assoc),
+        "solve": lambda: _pairs_fused_solve(cfg, ctx.layout, acc, jtr, u,
+                                            j_cap),
+        "fuse": lambda: fusion.fuse_frame(cfg, intr, state0.surfels,
+                                          state0.graph, frame1),
+    }
+    times = {name: _stage_ms(fn, reps, device) for name, fn in stages.items()}
+    np_cap = cfg.capacity.surfel_capacity
+    floors = sol.stage_floors(
+        np_cap=np_cap, p=cfg.image_pixels, j=j_cap,
+        t_cap=cfg.solver.assembly_tuple_cap,
+        a_cap=cfg.capacity.new_surfel_capacity,
+        pcg_iters=cfg.solver.pcg_iterations,
+        num_lm_iters=cfg.solver.num_iterations,
+        pair_cap=cfg.solver.assembly_pair_cap)
+    report = sol.sol_report(
+        {k: v.get("device_ms", v.get("host_ms")) for k, v in times.items()},
+        floors, mxu_flops={"assemble": np_cap * 28 * 29 * 2})
+    for name, t in times.items():
+        report.setdefault(name, {}).update(t)
+    return dict(stages=report, floors=floors)
 
 
 def measure_perception(reps: int, device, height: int, width: int) -> dict:
@@ -137,49 +279,70 @@ def measure_perception(reps: int, device, height: int, width: int) -> dict:
                                 num_classes=2), n))
 
 
+def _device_fields(device) -> dict:
+    if torch.device(device).type != "cuda":
+        return dict(device="cpu")
+    return dict(device=torch.cuda.get_device_name(device),
+                card=subprocess.run(
+                    ["nvidia-smi", "--query-gpu=name,power.limit",
+                     "--format=csv,noheader"], capture_output=True,
+                    text=True, check=True).stdout.strip().splitlines()[0])
+
+
+def _line(metric: str, hz: float) -> dict:
+    return dict(metric=metric, value=round(hz, 3), unit="frames/s/chip",
+                vs_baseline=round(hz / 30.0, 4), streams=1,
+                per_stream_hz=round(hz, 3), loop="host")
+
+
 def measure(reps: int = 30, device="cuda", height: int = 480,
-            width: int = 640, mesh_step: int = 30, dense: bool = True):
-    """The JSON line's fields."""
+            width: int = 640, mesh_step: int = 30, dense: bool = True,
+            association=None, sol: bool = False):
+    """The JSON line's fields.  With ``association`` only the headline,
+    with that association; with ``sol`` also the ``sol`` block."""
     from super_tpu_torch.config import e2e_depth_workload_config, \
         lm_workload_config, semantic_workload_config
 
     cfg = lm_workload_config(height, width, mesh_step)
-    hz, overflow = measure_step(cfg, reps, device)
-    out = dict(metric=METRIC, value=round(hz, 3), unit="frames/s/chip",
-               vs_baseline=round(hz / 30.0, 4), streams=1,
-               per_stream_hz=round(hz, 3), loop="host", overflow=overflow)
-    per_it = cfg.replace(solver=dataclasses.replace(
-        cfg.solver, association="per_iteration"))
-    hz_it, overflow_it = measure_step(per_it, reps, device)
-    out["per_iteration_hz"] = round(hz_it, 3)
-    out["per_iteration_overflow"] = overflow_it
-    if dense:
-        # The root bench's max(6, reps // 5) frames, never more than reps.
-        hz_d, overflow_d = measure_step(
-            lm_workload_config(height, width, 16),
-            min(reps, max(6, reps // 5)), device)
-        out["dense_mesh16_hz"] = round(hz_d, 3)
-        out["dense_overflow"] = overflow_d
-    # The root bench's max(6, reps // 3) frames, never more than reps.
-    hz_s, overflow_s = measure_step(
-        semantic_workload_config(height, width, mesh_step),
-        min(reps, max(6, reps // 3)), device)
-    out["semantic_hz"] = round(hz_s, 3)
-    out["semantic_overflow"] = overflow_s
-    out.update(measure_perception(reps, device, height, width))
-    hz_e, overflow_e = measure_step(
-        e2e_depth_workload_config(height, width, mesh_step),
-        min(reps, max(6, reps // 3)), device)
-    out["e2e_depth_hz"] = round(hz_e, 3)
-    out["e2e_depth_overflow"] = overflow_e
-    if torch.device(device).type == "cuda":
-        out["device"] = torch.cuda.get_device_name(device)
-        out["card"] = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            check=True).stdout.strip().splitlines()[0]
-    else:
-        out["device"] = "cpu"
+    if association is not None:
+        cfg = cfg.replace(solver=dataclasses.replace(
+            cfg.solver, association=association))
+    hz, overflow = measure_step(cfg, reps, device, cold=True)
+    out = _line(METRIC, hz)
+    out["cold_start_hz"] = overflow.pop("cold_start_hz")
+    out["cold_add_deferred"] = overflow.pop("cold_add_deferred")
+    out["overflow"] = overflow
+    if association is None:
+        per_it = cfg.replace(solver=dataclasses.replace(
+            cfg.solver, association="per_iteration"))
+        hz_it, overflow_it = measure_step(per_it, reps, device)
+        out["per_iteration_hz"] = round(hz_it, 3)
+        out["per_iteration_overflow"] = overflow_it
+        if dense:
+            # The root bench's max(6, reps // 5) frames, never more than
+            # reps.
+            hz_d, overflow_d = measure_step(
+                lm_workload_config(height, width, 16),
+                min(reps, max(6, reps // 5)), device)
+            out["dense_mesh16_hz"] = round(hz_d, 3)
+            out["dense_overflow"] = overflow_d
+        # The root bench's max(6, reps // 3) frames, never more than reps.
+        hz_s, overflow_s = measure_step(
+            semantic_workload_config(height, width, mesh_step),
+            min(reps, max(6, reps // 3)), device)
+        out["semantic_hz"] = round(hz_s, 3)
+        out["semantic_overflow"] = overflow_s
+        out.update(measure_perception(reps, device, height, width))
+        hz_e, overflow_e = measure_step(
+            e2e_depth_workload_config(height, width, mesh_step),
+            min(reps, max(6, reps // 3)), device)
+        out["e2e_depth_hz"] = round(hz_e, 3)
+        out["e2e_depth_overflow"] = overflow_e
+    if sol:
+        # The root bench's 40 calls a stage.
+        out["sol"] = measure_sol(lm_workload_config(height, width,
+                                                    mesh_step), 40, device)
+    out.update(_device_fields(device))
     return out
 
 
@@ -191,6 +354,13 @@ def main():
     ap.add_argument("--mesh_step_size", type=int, default=30)
     ap.add_argument("--no_dense", action="store_true",
                     help="skip the dense mesh-16 workload")
+    ap.add_argument("--mode", default="step", choices=["step", "lm"])
+    ap.add_argument("--association", default=None,
+                    choices=["per_frame", "per_iteration"],
+                    help="measure the headline with this association only "
+                         "(default: per_frame, and the sweep)")
+    ap.add_argument("--sol", action="store_true",
+                    help="add the per-stage speed-of-light block")
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (a check of the loop, not a "
                          "measurement of the card)")
@@ -202,8 +372,19 @@ def main():
     else:
         raise SystemExit("bench: no CUDA device (pass --cpu to run on the "
                          "CPU)")
-    print(json.dumps(measure(args.reps, device, args.height, args.width,
-                             args.mesh_step_size, not args.no_dense)))
+    if args.mode == "lm":
+        from super_tpu_torch.config import lm_workload_config
+
+        cfg = lm_workload_config(args.height, args.width, args.mesh_step_size)
+        cfg = cfg.replace(solver=dataclasses.replace(
+            cfg.solver, association=args.association or "per_frame"))
+        out = dict(_line(LM_METRIC, measure_lm(cfg, args.reps, device)),
+                   **_device_fields(device))
+    else:
+        out = measure(args.reps, device, args.height, args.width,
+                      args.mesh_step_size, not args.no_dense,
+                      args.association, args.sol)
+    print(json.dumps(out))
 
 
 if __name__ == "__main__":

@@ -15,8 +15,17 @@ preprocessing, as the semantic configurations need.  Without given depths
 the perception nets of ``models`` (factory.py) infer each frame's depth,
 and its segmentation where the config has a segmentation net; with
 ``sf_corr`` and a flow net, each step's fit takes the flow from the
-previous frame's colour.  Not ported yet: the logger, render and
-checkpoint hooks, which raise ``NotImplementedError`` when asked for.
+previous frame's colour.
+
+Every ``cfg.save_sample_freq`` frames the loop observes the run: with a
+``logdir`` it logs the step's scalars and the reprojection errors, and
+images (the raw frame, its disparity, the z-buffer render of the map
+with the tracked points and the ED mesh drawn in, and the surfels'
+confidences through magma, rendered) through utils/viz.py's
+``TrackingLogger``; with a ``checkpoint_dir`` it saves the state
+(utils/checkpoint.py).  Observation runs after the frame's time is taken,
+so it is not in ``frame_times``; its own host time is kept in
+``observe_times``.  The plots' data is logged once, at the end of a run.
 """
 
 from __future__ import annotations
@@ -35,8 +44,12 @@ from super_tpu_torch.core.track_points import (
     record_track_coords,
 )
 from super_tpu_torch.core.tracker import init_tracker, track_step
-from super_tpu_torch.geometry.camera import Intrinsics
+from super_tpu_torch.geometry.camera import Intrinsics, project_points
+from super_tpu_torch.render.splat import render_zbuffer
 from super_tpu_torch.utils import evaluation
+from super_tpu_torch.utils.checkpoint import save_state
+from super_tpu_torch.utils.colormap import magma
+from super_tpu_torch.utils.viz import TrackingLogger
 
 OVERFLOW_COUNTERS = ("tuple_overflow", "pair_overflow", "proj_overflow",
                      "add_overflow", "free_exhausted", "dup_skipped")
@@ -57,9 +70,6 @@ class SuPerPipeline:
     def __init__(self, cfg: SuPerConfig, intr: Intrinsics,
                  logdir: Optional[str] = None,
                  checkpoint_dir: Optional[str] = None, device="cuda"):
-        if logdir is not None or checkpoint_dir is not None:
-            raise NotImplementedError(
-                "the logger and checkpoint hooks are not ported")
         self.cfg = cfg
         self.device = torch.device(device)
         self.intr = Intrinsics(*(x.to(self.device) for x in intr))
@@ -69,6 +79,9 @@ class SuPerPipeline:
         self.frame_times = []
         self.overflow_totals: Dict[str, int] = {}
         self._prev_color = None   # (3, H, W): the source of the sf_corr flow
+        self.logger = None if logdir is None else TrackingLogger(logdir)
+        self.checkpoint_dir = checkpoint_dir
+        self.observe_times = []   # host seconds of each observation
 
     def run(self, depths, colors, gt_xy=None, gt_valid=None, segs=None,
             seg_confs=None, right_colors=None, models=None,
@@ -142,7 +155,56 @@ class SuPerPipeline:
                 n = int(self.state.surfels.num_active)
                 print(f"frame {t}: {n} surfels, "
                       f"{self.frame_times[-1] * 1e3:.1f} ms")
+            observed = (self.logger is not None
+                        or self.checkpoint_dir is not None)
+            if observed and t % cfg.save_sample_freq == 0:
+                tic = _time.perf_counter()
+                self._observe(t, frame, depth, outs)
+                self.observe_times.append(_time.perf_counter() - tic)
+        if self.logger is not None and self.errors:
+            self.logger.log_trackpts_plots(max(self.errors), self.errors,
+                                           self.track_results,
+                                           np.asarray(gt_xy))
         return self.summary()
+
+    def _render(self, colors):
+        sf = self.state.surfels
+        return render_zbuffer(sf.points, colors, sf.active, self.intr,
+                              self.cfg.height, self.cfg.width).cpu().numpy()
+
+    def _observe(self, t, frame, depth, outs):
+        """Periodic logging and checkpointing (the reference's
+        save_sample_freq behaviour)."""
+        cfg = self.cfg
+        if self.logger is not None:
+            log = self.logger
+            if outs is not None:
+                log.log_step(t, outs, self.frame_times[-1] * 1e3)
+            log.log_reproj(t, self.errors, cfg.edge_ids)
+            sf, g = self.state.surfels, self.state.graph
+            kp = None
+            if self.track_results.get(t) is not None:
+                est = self.track_results[t]
+                kp = est[est[:, 2] > 0][:, :2]
+            gv, gu, _, _ = project_points(g.points.T, self.intr, cfg.height,
+                                          cfg.width)
+            mesh_xy = torch.stack([gu, gv], dim=1).cpu().numpy()
+            edges = g.edges[g.edge_active].cpu().numpy()
+            log.log_images(
+                t, frame.color_image.cpu().numpy(),
+                depth=(depth.cpu().numpy() if isinstance(depth, torch.Tensor)
+                       else np.asarray(depth)),
+                render_chw=self._render(sf.colors), keypoints_xy=kp,
+                mesh_points_xy=mesh_xy, mesh_edges=edges)
+            # The confidence heat map (the reference's renderImg_conf_heat):
+            # the surfels' confidences through magma, rendered.
+            confs = np.clip(sf.confs.cpu().numpy(), 0, 1)
+            heat = np.ascontiguousarray(magma(confs).T.astype(np.float32))
+            log.add_image("visualization/uncertainty", np.clip(
+                self._render(torch.as_tensor(heat, device=self.device)), 0, 1),
+                t)
+        if self.checkpoint_dir is not None:
+            save_state(self.checkpoint_dir, self.state, step=t)
 
     def _eval_frame(self, t, frame, gt_xy_t, gt_valid_t):
         dev = self.device

@@ -55,6 +55,7 @@ from super_tpu_torch.config import WORKLOADS, workload_config
 from super_tpu_torch.core.preprocess import preprocess_frame
 from super_tpu_torch.core.tracker import init_tracker, track_step
 from super_tpu_torch.data.synthetic import default_intrinsics, generate
+from super_tpu_torch.utils.profiling import kernel_spans
 
 RANGES = ("perception.depth", "step.preprocess", "step.prepare_lm",
           "step.lm_solve", "step.graph_fit", "step.apply_deformation",
@@ -158,18 +159,10 @@ def main():
 
     # Device-side events: the kernels, and one interval per range on the
     # device timeline.  A kernel counts toward a range when it ran inside
-    # that interval; this also catches the port's own kernels, which are
-    # launched through ctypes and so have no PyTorch op as parent.
+    # that interval.
     dev_events = [e for e in prof.events()
                   if e.device_type == DeviceType.CUDA]
-    # The device timeline also carries every host range's span (ours, and
-    # PyTorch's own such as "Optimizer.step#Adam.step"); a kernel's name is
-    # never a host event's.
-    host_names = {e.name for e in prof.events()
-                  if e.device_type == DeviceType.CPU}
-    kernels = [(e.time_range.start, e.time_range.end, e.name)
-               for e in dev_events if e.name not in host_names]
-    kernels.sort()
+    kernels = kernel_spans(prof)
     starts = [k[0] for k in kernels]
     per = 1e3 * args.frames
     ranges = {}

@@ -1,6 +1,16 @@
-"""Differentiable soft splat of the surfel map (counterpart of
-super_tpu/render/splat.py:render_soft).
+"""Surfel splatting renderers (counterpart of super_tpu/render/splat.py).
 
+:func:`render_zbuffer` is the hard nearest-depth splat of the logger's
+images.  The nearest depth of each pixel is a scatter-min, which no order
+changes.  Its winners are the surfels at that depth; where two of them
+share a pixel at equal depth the JAX package's colour write
+(``.at[].set``) leaves the order to XLA, which on the CPU applies the
+updates in order, so the last slot wins.  The port defines that winner
+(a CUDA scatter with repeated indices would not): a scatter-max of the
+winners' slot ids picks each pixel's highest slot, whose colour is then
+gathered.
+
+:func:`render_soft` is the differentiable splat of the render loss.
 Each surfel deposits ``w = bilinear(u, v) * exp(-(z - z_min) / (gamma
 |z_min|))`` into its 4 neighbouring pixels; the image is the
 weight-normalised colour blend over the background.  The per-pixel depth
@@ -8,8 +18,7 @@ minimum is a scatter-min of detached depths, which no order changes.  The
 weight and colour sums add into shared pixels, so they go through the
 fixed-order segment sum (:func:`kernels.segsum.segment_reduce`) under a
 plan made at each call, since the pixels move with the points; the
-backward pass of those sums gathers.  The hard z-buffer render belongs to
-the logger and is not ported.
+backward pass of those sums gathers.
 """
 
 from __future__ import annotations
@@ -19,6 +28,32 @@ import torch
 from super_tpu_torch.geometry.camera import Intrinsics, project_points
 from super_tpu_torch.kernels.segsum import segment_plan, segment_reduce
 from super_tpu_torch.ops.bilinear import hinge, tent
+
+
+def render_zbuffer(points, colors, mask, intr: Intrinsics, height: int,
+                   width: int, bg_color: float = 0.0):
+    """(3, H, W) hard z-buffer splat of surfels ``points`` (3, N) with
+    ``colors`` (3, N) where ``mask`` (N,): each pixel the colour of its
+    nearest surfel, of the highest slot among equals."""
+    p = height * width
+    n = points.shape[1]
+    _, _, coords, valid = project_points(points, intr, height, width)
+    valid = valid & mask
+    inf = torch.full((), float("inf"), dtype=points.dtype,
+                     device=points.device)
+    z = torch.where(valid, points[2], inf)
+    pix = torch.where(valid, coords, p).long()
+    zbuf = torch.full((p + 1,), float("inf"), dtype=points.dtype,
+                      device=points.device).scatter_reduce(0, pix, z, "amin")
+    win = valid & (z <= zbuf[pix])
+    slot = torch.arange(n, device=points.device)
+    owner = torch.full((p + 1,), -1, dtype=torch.long,
+                       device=points.device).scatter_reduce(
+        0, torch.where(win, pix, p), torch.where(win, slot, -1), "amax")[:p]
+    img = torch.where(owner >= 0, colors[:, owner.clamp(min=0)],
+                      torch.full((), bg_color, dtype=colors.dtype,
+                                 device=colors.device))
+    return img.reshape(3, height, width)
 
 
 def render_soft(points, colors, mask, intr: Intrinsics, height: int,

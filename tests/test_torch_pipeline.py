@@ -107,16 +107,19 @@ def test_tracking_bounds(runs, name):
     assert metrics["reproj_mean"] < 0.75 * static_err, (metrics, static_err)
 
 
-def test_unported_hooks_raise():
-    """The logger and checkpoint hooks raise; depth from the perception
-    nets is ported (test_torch_perception_pipeline.py), and a run with
-    neither depths nor nets raises."""
+def test_unported_hooks_raise(tmp_path):
+    """Nothing of the loop is left unported: the logger and checkpoint
+    hooks take their directories (test_torch_observability.py holds them
+    to the JAX package), depth from the perception nets is ported
+    (test_torch_perception_pipeline.py); what still raises is a run with
+    neither depths nor nets."""
     cfg = port_config(_config("per_frame"))
     intr = tintr(H, W, device="cpu")
-    with pytest.raises(NotImplementedError):
-        TSuPerPipeline(cfg, intr, logdir="x", device="cpu")
-    with pytest.raises(NotImplementedError):
-        TSuPerPipeline(cfg, intr, checkpoint_dir="x", device="cpu")
+    pipe = TSuPerPipeline(cfg, intr, logdir=str(tmp_path / "logs"),
+                          checkpoint_dir=str(tmp_path / "ck"), device="cpu")
+    assert pipe.logger is not None and pipe.logger.logdir.endswith("logs")
+    assert pipe.checkpoint_dir == str(tmp_path / "ck")
     pipe = TSuPerPipeline(cfg, intr, device="cpu")
+    assert pipe.logger is None and pipe.checkpoint_dir is None
     with pytest.raises(ValueError):
         pipe.run(None, np.zeros((1, H, W, 3), np.float32))
