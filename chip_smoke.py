@@ -102,8 +102,7 @@ holds frame 1's depth to the CPU path's and a second track bitwise;
 ``semantic_models`` tracks 3 frames of the semantic workload with
 DeepLabV3+ segmentations and RAFT's ``sf_corr`` flow (the corr face
 nonzero on every frame, a repeat bitwise), then one frame with the flow
-of the render.  The kernels line's launches of K1, ``data_gram`` and the
-segment sum are ``e2e_depth``'s, each earlier path's beside.
+of the render.
 
 The stereo SSIM confidence and the entry points: ``ssim_conf`` tracks 3
 headline frames with ``disable_ssim_conf=False`` (launches as the
@@ -137,6 +136,28 @@ primitive costs that utils/sol.py's H100 constants came from and prints
 ``bench.measure_sol``'s stages (device ms alone, events ms, floor,
 sol_frac); ``bench`` also prints the headline's ``cold_start_hz`` and
 ``cold_add_deferred`` and the ``--mode lm`` rate at 6 solves.
+
+Streams and devices (the main path of the last slice): ``streams`` tracks
+4 streams at 480 x 640 (four 6-frame time windows of the synthetic
+sequence, with the GT points) through ``MultiStreamPipeline``, whose
+batched step loops over the streams: each stream's outputs and final map
+bitwise its single-stream track, stream 0 bitwise ``SuPerPipeline``,
+launches four streams' (K1 and ``data_gram`` 200, the segment sum 804),
+the batch p50 and aggregate frames/s beside the single stream's.
+``sharded`` and ``stream_mesh`` run in two processes on the one card,
+started with torch.multiprocessing's spawn, loading the kernels
+``phase_build`` built, in one gloo world: mesh ('stream' 1, 'shard' 2)
+splits the headline's 720,896 slots in two (frame 1's assembly and K2's
+partial Grams against one process, frame 2's LM solve, 3 frames of
+``track_step_sharded`` against one process, both ranks bitwise equal,
+each launching one process's kernels; the all-reduce's time a trip and
+its bytes), then mesh ('stream' 2, 'shard' 1) tracks each rank's stream
+through ``shard_stream_batch`` and ``make_multichip_step``, bitwise the
+single-stream track run in this process.  ``bench_streams`` prints the
+bench's headline line with ``--streams 4`` and with 1.  The kernels
+line's launches of K1, ``data_gram`` and the segment sum are the
+``streams`` run's, each earlier path's beside (``launches_e2e_depth``,
+the sharded and stream-mesh runs' per process).
 
 Launch counts are set to 0 just before a path runs and read just after.
 Each phase prints one JSON line; any failure raises and exits non-zero.  The
@@ -2398,6 +2419,486 @@ def phase_bench(dev):
 
 
 # ---------------------------------------------------------------------------
+# Streams and devices: the stream batch, the surfel-sharded solve over a
+# process group, the ('stream', 'shard') mesh.
+
+STREAMS = 4                        # concurrent streams of the streams phase
+STREAM_FRAMES = 6                  # frames of each (frame 0 initialises)
+SHARD_FRAMES = 3                   # tracked frames of the sharded step
+MESH_FRAMES = 4                    # frames of each stream_mesh stream
+PARALLEL_TIMEOUT = 600             # s the two spawned processes may take
+# The sharded assembly against one process (tests/test_parallel.py's
+# tolerances): jtj and jtr within ASSEMBLY_TOL of their largest magnitude,
+# the cost within rtol 1e-5.  With bf16 pair sums each shard rounds its
+# part of the tuple that the slice edge cuts to bf16 apart: that tuple's
+# blocks then differ by a few bf16 rounding steps, 2^-6 of the largest
+# entry at most.
+ASSEMBLY_TOL = {"f32": 2e-5, "bf16": 2.0 ** -6}
+
+
+def _window_frames(cfg, intr, seq, window, dev):
+    """The frames of one stream: a time window of ``seq``, timed from 0."""
+    from super_tpu_torch.core.preprocess import preprocess_frame
+
+    colors = np.ascontiguousarray(seq.colors[window].transpose(0, 3, 1, 2))
+    return [preprocess_frame(cfg, intr, d, c, float(t), device=dev)
+            for t, (d, c) in enumerate(zip(seq.depths[window], colors))]
+
+
+def _np_same(a, b):
+    """Bitwise equal numpy trees (NaN where the other is NaN)."""
+    from super_tpu_torch.utils.tree import leaves
+
+    la, lb = leaves(a), leaves(b)
+    return len(la) == len(lb) and all(
+        np.array_equal(np.asarray(x), np.asarray(y), equal_nan=np.asarray(
+            x).dtype.kind == "f") for x, y in zip(la, lb))
+
+
+def _digests(state):
+    """sha256 of each surfel and graph tensor of a state, in field order."""
+    import hashlib
+
+    from super_tpu_torch.utils.tree import leaves
+
+    return [hashlib.sha256(x.detach().cpu().numpy().tobytes()).hexdigest()
+            for x in leaves(state.surfels) + leaves(state.graph)]
+
+
+def phase_streams(dev, cfg, intr):
+    """STREAMS streams at 480 x 640 through MultiStreamPipeline (the stream
+    batch: make_batched_step), STREAM_FRAMES frames each with the GT
+    points: four time windows of the synthetic sequence.  Each stream's
+    outputs per frame and final surfels and graph bitwise its
+    single-stream track (``_track``); stream 0 bitwise SuPerPipeline on
+    the same frames, tracked points included; the four maps different;
+    the launches four streams' (counts zeroed just before the run);
+    timings beside the single stream's."""
+    from super_tpu_torch.convert import to_numpy
+    from super_tpu_torch.parallel.streams import MultiStreamPipeline
+    from super_tpu_torch.pipeline import SuPerPipeline
+    from super_tpu_torch.utils.tree import tree_map
+
+    seq = _sequence(cfg, intr, STREAMS * STREAM_FRAMES)
+    wins = [slice(s * STREAM_FRAMES, (s + 1) * STREAM_FRAMES)
+            for s in range(STREAMS)]
+    data = {k: np.stack([getattr(seq, k)[w] for w in wins])
+            for k in ("depths", "colors", "gt_xy", "gt_valid")}
+    single = SuPerPipeline(cfg, intr, device=dev)
+    single_m = single.run(data["depths"][0], data["colors"][0],
+                          gt_xy=data["gt_xy"][0], gt_valid=data["gt_valid"][0])
+
+    wrappers = _launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers.values():
+        w.launches = 0
+    pipe = MultiStreamPipeline(cfg, intr, device=dev)
+    m = pipe.run(**data)
+    launches = {k: w.launches for k, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated()
+
+    tracks = [_track(cfg, intr, _window_frames(cfg, intr, seq, w, dev))
+              for w in wins]
+    same = {}
+    for s, (state, outs, _) in enumerate(tracks):
+        mine = tree_map(lambda x, s=s: x[s], pipe.states)
+        same[f"stream{s}_outputs"] = all(
+            _np_same(to_numpy(tree_map(lambda x, s=s: x[s], o)), want)
+            for o, want in zip(pipe.outputs, outs))
+        same[f"stream{s}_state"] = (_same(mine.surfels, state.surfels)
+                                    and _same(mine.graph, state.graph))
+    mine = tree_map(lambda x: x[0], pipe.states)
+    same["stream0_pipeline"] = (_same(mine.surfels, single.state.surfels)
+                                and _same(mine.graph, single.state.graph)
+                                and _same(mine.track, single.state.track))
+    points = pipe.states.surfels.points
+    differ = all(not torch.equal(points[a], points[b])
+                 for a in range(STREAMS) for b in range(a + 1, STREAMS))
+    trips = cfg.solver.num_iterations * (STREAM_FRAMES - 1) * STREAMS
+    want = {k: 0 for k in wrappers}
+    want.update(pairs_cg=trips, data_gram=trips,
+                segment_sum=STREAMS * SEGSUM_AT_INIT
+                + SEGSUM_PER_TRIP * trips)
+    out = dict(phase="streams", streams=STREAMS, frames=STREAM_FRAMES,
+               height=cfg.height, width=cfg.width, launches=launches,
+               bitwise=same, streams_differ=differ,
+               p50_batch_ms=m["p50_batch_ms"],
+               aggregate_fps=m["aggregate_fps"],
+               per_stream_fps=m["aggregate_fps"] / STREAMS,
+               single_p50_frame_ms=single_m["p50_frame_ms"],
+               single_fps=single_m["fps"],
+               batch_over_single=m["p50_batch_ms"]
+               / single_m["p50_frame_ms"],
+               reproj_mean=m["reproj_mean"],
+               reproj_mean_worst_stream=m["reproj_mean_worst_stream"],
+               reproj_per_stream=pipe.stream_means(),
+               single_reproj_mean=single_m["reproj_mean"],
+               peak_mem_gb=peak / 1e9,
+               batch_ms=[t * 1e3 for t in pipe.frame_times],
+               single_ms=[t * 1e3 for t in single.frame_times])
+    emit(out)
+    if not (all(same.values()) and differ and launches == want
+            and math.isfinite(m["reproj_mean"])):
+        raise RuntimeError(f"streams check failed (launches want {want})")
+    return launches
+
+
+def _parallel_child(rank, world, store, cfg, depths, colors, out_dir,
+                    device_type):
+    """One of the two processes of phase_parallel, on cuda:0 (with
+    ``device_type`` "cuda"): the sharded checks on mesh ('stream' 1,
+    'shard' 2), then its stream on mesh ('stream' 2, 'shard' 1); results
+    pickled to ``out_dir``."""
+    import pickle
+
+    import torch.distributed as dist
+
+    from super_tpu_torch.data.synthetic import default_intrinsics
+    from super_tpu_torch.kernels import build
+    from super_tpu_torch.parallel import multihost
+
+    dev = torch.device(device_type)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+    missing = [n for n in SOURCES if not build.library_path(n).exists()]
+    if missing:   # phase_build built them; a child must not compile
+        raise RuntimeError(f"rank {rank}: kernels not built: {missing}")
+    import super_tpu_torch  # noqa: F401  (TF32 off)
+
+    multihost.initialize("gloo", init_method=f"file://{store}",
+                         world_size=world, rank=rank)
+    try:
+        intr = default_intrinsics(cfg.height, cfg.width, device=dev)
+        seq = types.SimpleNamespace(depths=depths, colors=colors)
+        res = dict(sharded=_child_sharded(rank, cfg, intr, seq, dev),
+                   stream_mesh=_child_stream_mesh(cfg, intr, seq, dev))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+
+
+@contextlib.contextmanager
+def _stderr_lines():
+    """The lines written to file descriptor 2 (by any thread, C++ warnings
+    included) while the context is open, in the list it yields."""
+    lines = []
+    sys.stderr.flush()
+    saved = os.dup(2)
+    with tempfile.TemporaryFile(mode="w+") as f:
+        os.dup2(f.fileno(), 2)
+        try:
+            yield lines
+        finally:
+            sys.stderr.flush()
+            os.dup2(saved, 2)
+            os.close(saved)
+            f.seek(0)
+            lines += f.read().splitlines()
+
+
+def _child_sharded(rank, cfg, intr, seq, dev):
+    import hashlib
+    import warnings
+
+    from super_tpu_torch.convert import to_numpy
+    from super_tpu_torch.core import losses
+    from super_tpu_torch.core.lm import lm_solve
+    from super_tpu_torch.core.losses import assemble_normal_equations, \
+        associate, prepare_lm, total_cost
+    from super_tpu_torch.core.tracker import init_tracker
+    from super_tpu_torch.kernels.gram import data_gram
+    from super_tpu_torch.parallel.mesh import make_mesh
+    from super_tpu_torch.parallel.sharded import shard_ctx, \
+        track_step_sharded
+
+    mesh = make_mesh(num_streams=1, num_shards=2, device_type=dev.type)
+    group = mesh.get_group("shard")
+    out = dict(mesh=mesh.mesh.tolist(), coordinate=list(
+        mesh.get_coordinate()))
+    frames = _window_frames(cfg, intr, seq, slice(0, SHARD_FRAMES + 1), dev)
+    state0 = init_tracker(cfg, frames[0])
+    j = cfg.capacity.node_capacity
+    ident = torch.zeros((j, 7), device=dev)
+    ident[:, 0] = 1.0
+    # Frame 1's assembly, with the headline's bf16 pair sums and in f32.
+    for sums in ("bf16", "f32"):
+        c = cfg.replace(solver=dataclasses.replace(
+            cfg.solver, gram_sum_dtype=sums))
+        ctx = prepare_lm(c, state0.surfels, state0.graph, frames[1])
+        local = shard_ctx(ctx, rank, 2)
+        assoc, assoc_l = associate(c, ctx, intr), associate(c, local, intr)
+        for name, beta in (("identity", ident),
+                           ("perturbed", _perturbed_beta(c, dev))):
+            a = assemble_normal_equations(c, ctx, beta, intr, assoc)
+            b = assemble_normal_equations(c, local, beta, intr, assoc_l,
+                                          group=group)
+            out[f"assembly_{sums}_{name}"] = dict(
+                jtj_err=_rel(b[0], a[0]), jtr_err=_rel(b[1], a[1]),
+                cost_rel=abs(float(b[2]) / float(a[2]) - 1))
+    # K2 on the slice: the shard's partial tuple Grams sum to the whole.
+    w = cfg.losses.sf_point_plane_weight
+    g = cfg.solver.assembly_pad_group
+    whole = data_gram(ctx, ident, w, assoc, block=g)
+    part = losses.all_reduce_sum(
+        data_gram(local, ident, w, assoc_l, block=g), group)
+    out["k2_slice"] = dict(slots=local.sf_mask.shape[0],
+                           blocks=local.layout.block_tuple.shape[0],
+                           gram_err=_rel(part[0], whole[0]),
+                           jtr_err=_rel(part[1], whole[1]),
+                           cost_rel=abs(float(part[2]) / float(whole[2]) - 1))
+    # The LM solve of frame 2 (tests/test_parallel.py:87's checks).
+    ctx = prepare_lm(cfg, state0.surfels, state0.graph, frames[2])
+    ref = lm_solve(cfg, ctx, intr)
+    sh = lm_solve(cfg, shard_ctx(ctx, rank, 2), intr, group=group)
+    out["lm"] = dict(
+        ref_cost=float(ref.cost), cost=float(sh.cost),
+        cost_of_sharded_beta=float(total_cost(
+            cfg, ctx, sh.beta, intr, associate(cfg, ctx, intr))),
+        beta_err=_rel(sh.beta, ref.beta),
+        ref_trans=float(torch.max(torch.abs(ref.beta[:, 4:]))),
+        beta_sha=hashlib.sha256(sh.beta.cpu().numpy().tobytes()).hexdigest())
+    # SHARD_FRAMES tracked frames, launches counted, every all-reduce
+    # counted, and the syncs that CUDA's sync debug mode "warn" flags: in
+    # this thread as Python warnings, in gloo's threads (its copies to and
+    # from host memory) as lines on the process's standard error.
+    calls = [0]
+    reduce = losses.all_reduce_sum
+
+    def counted(tensors, grp):
+        calls[0] += 1
+        return reduce(tensors, grp)
+
+    wrappers = _launch_counts()
+    state, outs, times, syncs = state0, [], [], []
+    losses.all_reduce_sum = counted
+    for wr in wrappers.values():
+        wr.launches = 0
+    try:
+        for f in frames[1:]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with warnings.catch_warnings(record=True) as caught, \
+                    _stderr_lines() as lines:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    state, o = track_step_sharded(cfg, intr, 2, state, f,
+                                                  group=group)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            syncs.append(dict(
+                this_thread=sum("synchroniz" in str(x.message)
+                                for x in caught),
+                other_threads=sum("synchronizing CUDA operation" in ln
+                                  for ln in lines)))
+            outs.append(to_numpy(o))
+    finally:
+        losses.all_reduce_sum = reduce
+    out.update(track=outs, track_ms=times, syncs=syncs,
+               all_reduces=calls[0],
+               launches={k: wr.launches for k, wr in wrappers.items()},
+               track_digests=_digests(state))
+    # One trip's all-reduce alone: the pair-form jtj, jtr and cost packed
+    # into one buffer, between CUDA events and on the host clock.
+    p = cfg.solver.assembly_pair_cap
+    bufs = (torch.ones((p, 49), device=dev), torch.ones((7 * j,), device=dev),
+            torch.ones((), device=dev))
+    for _ in range(3):
+        losses.all_reduce_sum(bufs, group)
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    reps = 20
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(reps):
+        losses.all_reduce_sum(bufs, group)
+    end.record()
+    end.synchronize()
+    out["all_reduce"] = dict(bytes=4 * (49 * p + 7 * j + 1),
+                             events_ms=start.elapsed_time(end) / reps,
+                             host_ms=(time.perf_counter() - t0) * 1e3 / reps)
+    return out
+
+
+def _child_stream_mesh(cfg, intr, seq, dev):
+    from super_tpu_torch.convert import to_numpy
+    from super_tpu_torch.core.tracker import init_tracker
+    from super_tpu_torch.parallel import multihost
+    from super_tpu_torch.parallel.mesh import make_mesh
+    from super_tpu_torch.parallel.sharded import make_multichip_step
+    from super_tpu_torch.utils.tree import stack, tree_map
+
+    mesh = make_mesh(device_type=dev.type)     # ('stream' 2, 'shard' 1)
+    s = range(2)[multihost.stream_block(mesh, 2)][0]
+    frames = _window_frames(cfg, intr, seq, slice(
+        s * MESH_FRAMES, (s + 1) * MESH_FRAMES), dev)
+    # Host-local streams placed on the device, as a multi-host run does.
+    states = multihost.shard_stream_batch(mesh, to_numpy(stack(
+        [init_tracker(cfg, frames[0])])))
+    step = make_multichip_step(cfg, intr, mesh)
+    wrappers = _launch_counts()
+    for wr in wrappers.values():
+        wr.launches = 0
+    outs = []
+    for f in frames[1:]:
+        fb = multihost.shard_stream_batch(mesh, to_numpy(stack([f])))
+        states, o = step(states, fb)
+        outs.append(to_numpy(tree_map(lambda x: x[0], o)))
+    return dict(mesh=mesh.mesh.tolist(),
+                coordinate=list(mesh.get_coordinate()), stream=s, outs=outs,
+                launches={k: wr.launches for k, wr in wrappers.items()},
+                digests=_digests(tree_map(lambda x: x[0], states)))
+
+
+def phase_parallel(dev, cfg, intr):
+    """Two processes on cuda:0 (gloo: NCCL refuses two ranks on one
+    device), started here with torch.multiprocessing's spawn; each loads
+    the kernels phase_build built.  ``sharded``: mesh ('stream' 1, 'shard'
+    2) on the headline, Np = 720,896 slots in two slices; frame 1's
+    assembly and K2's partial Grams against one process, frame 2's LM
+    solve, SHARD_FRAMES frames of track_step_sharded against this
+    process's single track, both ranks bitwise equal, each rank's launches
+    one process's.  ``stream_mesh``: mesh ('stream' 2, 'shard' 1), each
+    rank's stream through shard_stream_batch and make_multichip_step,
+    bitwise the single-stream track run here."""
+    import pickle
+
+    import torch.multiprocessing as tmp
+
+    seq = _sequence(cfg, intr, 2 * MESH_FRAMES)
+    n = max(2 * MESH_FRAMES, SHARD_FRAMES + 1)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_parallel_") as d:
+        ctx = tmp.spawn(_parallel_child, args=(
+            2, os.path.join(d, "store"), cfg, seq.depths[:n], seq.colors[:n],
+            d, dev.type), nprocs=2, join=False)
+        deadline = time.perf_counter() + PARALLEL_TIMEOUT
+        try:
+            while not ctx.join(timeout=max(deadline - time.perf_counter(),
+                                           0.0)):
+                if time.perf_counter() >= deadline:
+                    raise RuntimeError("parallel: the processes did not end "
+                                       f"within {PARALLEL_TIMEOUT} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        res = []
+        for r in range(2):
+            with open(os.path.join(d, f"rank{r}.pkl"), "rb") as f:
+                res.append(pickle.load(f))
+    spawn_s = time.perf_counter() - t0
+
+    # sharded
+    a, b = (r["sharded"] for r in res)
+    _, single, single_ms = _track(cfg, intr, _window_frames(
+        cfg, intr, seq, slice(0, SHARD_FRAMES + 1), dev))
+    trips = cfg.solver.num_iterations * SHARD_FRAMES
+    want = {k: 0 for k in a["launches"]}
+    want.update(pairs_cg=trips, data_gram=trips,
+                segment_sum=SEGSUM_PER_TRIP * trips)
+    cost_rels = [abs(float(x.lm_cost) / float(y.lm_cost) - 1)
+                 for x, y in zip(a["track"], single)]
+    surf = [(int(x.num_surfels), int(y.num_surfels))
+            for x, y in zip(a["track"], single)]
+    assembly = {k: v for k, v in a.items() if k.startswith("assembly_")}
+    ok_assembly = all(
+        v["jtj_err"] <= ASSEMBLY_TOL[k.split("_")[1]]
+        and v["jtr_err"] <= ASSEMBLY_TOL[k.split("_")[1]]
+        and v["cost_rel"] <= 1e-5 for k, v in assembly.items())
+    k2 = a["k2_slice"]
+    lm = a["lm"]
+    ranks_bitwise = dict(
+        lm_beta=a["lm"]["beta_sha"] == b["lm"]["beta_sha"],
+        track_outputs=_np_same(a["track"], b["track"]),
+        track_state=a["track_digests"] == b["track_digests"])
+    checks = dict(
+        mesh=[a["mesh"], b["mesh"]] == [[[0, 1]]] * 2
+        and [a["coordinate"], b["coordinate"]] == [[0, 0], [0, 1]],
+        assembly=ok_assembly,
+        k2_slice=k2["gram_err"] <= 2e-5 and k2["jtr_err"] <= 2e-5
+        and k2["cost_rel"] <= 1e-5,
+        lm=(abs(lm["cost"] / lm["ref_cost"] - 1) <= 1e-3
+            and lm["cost_of_sharded_beta"] <= lm["ref_cost"] * (1 + 1e-3)
+            and lm["beta_err"] <= 5e-3 and lm["ref_trans"] > 1e-4),
+        track=(all(c < 0.15 for c in cost_rels)
+               and all(abs(x - y) <= 0.01 * y for x, y in surf)),
+        launches=a["launches"] == want and b["launches"] == want,
+        ranks_bitwise=all(ranks_bitwise.values()))
+    emit(dict(phase="sharded", processes=2, backend="gloo",
+              slots=2 * k2["slots"], slots_per_shard=k2["slots"],
+              blocks_per_shard=k2["blocks"], assembly=assembly, k2_slice=k2,
+              lm=lm, track_cost_rel_err=cost_rels, track_num_surfels=surf,
+              track_ms=[a["track_ms"], b["track_ms"]],
+              single_track_ms=single_ms, launches=[a["launches"],
+                                                   b["launches"]],
+              all_reduces_per_frame=a["all_reduces"] / SHARD_FRAMES,
+              syncs_flagged=[a["syncs"], b["syncs"]],
+              all_reduce=[a["all_reduce"], b["all_reduce"]],
+              ranks_bitwise=ranks_bitwise, checks=checks,
+              spawn_seconds=spawn_s))
+    if not all(checks.values()):
+        raise RuntimeError(f"sharded check failed: {checks}")
+
+    # stream_mesh
+    same = {}
+    for r, out in enumerate(r_["stream_mesh"] for r_ in res):
+        s = out["stream"]
+        state, outs, _ = _track(cfg, intr, _window_frames(
+            cfg, intr, seq, slice(s * MESH_FRAMES, (s + 1) * MESH_FRAMES),
+            dev))
+        same[f"rank{r}"] = dict(
+            stream=s == r, outputs=_np_same(out["outs"], outs),
+            state=out["digests"] == _digests(state))
+    sm = [r_["stream_mesh"] for r_ in res]
+    trips = cfg.solver.num_iterations * (MESH_FRAMES - 1)
+    want = {k: 0 for k in sm[0]["launches"]}
+    want.update(pairs_cg=trips, data_gram=trips,
+                segment_sum=SEGSUM_PER_TRIP * trips)
+    ok = (all(all(v.values()) for v in same.values())
+          and sm[0]["digests"] != sm[1]["digests"]
+          and [x["mesh"] for x in sm] == [[[0], [1]]] * 2
+          and all(x["launches"] == want for x in sm))
+    emit(dict(phase="stream_mesh", processes=2, mesh=sm[0]["mesh"],
+              bitwise=same, launches=[x["launches"] for x in sm],
+              streams_differ=sm[0]["digests"] != sm[1]["digests"]))
+    if not ok:
+        raise RuntimeError(f"stream_mesh check failed: {same}")
+    return a["launches"], sm[0]["launches"]
+
+
+def phase_bench_streams(dev):
+    """The bench's line with ``--streams 4`` on the headline alone (reps
+    small), ``--streams 1`` beside it."""
+    from super_tpu_torch import bench
+
+    lines = {}
+    for streams in (1, STREAMS):
+        out = bench.measure(reps=4, device=dev, association="per_frame",
+                            streams=streams)
+        print(json.dumps(out), flush=True)
+        lines[streams] = out
+    four = lines[STREAMS]
+    ok = (four["streams"] == STREAMS and lines[1]["streams"] == 1
+          and abs(four["value"] - STREAMS * four["per_stream_hz"])
+          <= STREAMS * 5e-4 + 5e-4
+          and lines[1]["value"] == lines[1]["per_stream_hz"])
+    emit(dict(phase="bench_streams", aggregate_hz=four["value"],
+              per_stream_hz=four["per_stream_hz"],
+              single_hz=lines[1]["value"],
+              aggregate_over_single=four["value"] / lines[1]["value"]))
+    if not ok:
+        raise RuntimeError(f"bench_streams: {lines}")
+
+
+# ---------------------------------------------------------------------------
 # Observation, checkpoints and the speed-of-light model.
 
 OBSERVE_FRAMES = 6                 # frames of the observed pipeline
@@ -3035,6 +3536,11 @@ def main() -> int:
     ssim_cfg, ssim_frames, ssim_launches = phase_ssim_conf(dev, intr)
     observe_launches = phase_observe(dev, intr)
     phase_sol(dev)
+    # This slice's main path: the stream batch; then the sharded step and
+    # the stream mesh in two processes, and the bench's --streams.
+    stream_launches = phase_streams(dev, cfg, intr)
+    sharded_launches, mesh_launches = phase_parallel(dev, cfg, intr)
+    phase_bench_streams(dev)
     # The timed phases are done: the workers' CPU load costs only the
     # CPU reference solves time from here on.
     pool, sequences = _start_sequences(intr, PIPELINE_SEEDS)
@@ -3059,13 +3565,19 @@ def main() -> int:
         cli_sem_launches = phase_cli_semantic(root, dirs)
 
     # The launches of K1, data_gram and the segment sum are those of this
-    # slice's main path, the live path with monodepth2's depth; each
-    # earlier path's count rides beside.  The segment sum's time is that
-    # of the semantic fit's anchor rows, with the headline's pair rows
-    # beside.
+    # slice's main path, the stream batch (STREAMS streams); each earlier
+    # path's count rides beside, and the sharded step's and the stream
+    # mesh's per process.  The segment sum's time is that of the semantic
+    # fit's anchor rows, with the headline's pair rows beside.
+    def slice_counts(name):
+        return dict(launches_e2e_depth=e2e_launches[name],
+                    launches_sharded_per_process=sharded_launches[name],
+                    launches_stream_mesh_per_process=mesh_launches[name])
+
     segsum_entry = _kernel_entry(
         "segment_sum", "super_tpu_torch/csrc/segment_sum.cu", None,
-        e2e_launches["segment_sum"], segsum_sem)
+        stream_launches["segment_sum"], segsum_sem)
+    segsum_entry.update(slice_counts("segment_sum"))
     # launches_cli: the CLI runs' (cli_super_default for tuple_gram and
     # the segment sum, cli_super_pairs for K1 and data_gram, beside the
     # segment sum's cli_semantic count).
@@ -3084,7 +3596,8 @@ def main() -> int:
                         scatter_blocks_ms=segsum_scatter["ms"])
     k1_entry = _kernel_entry("pairs_cg", "super_tpu_torch/csrc/pairs_cg.cu",
                              "super_tpu/pallas_kernels/pcg.py:92",
-                             e2e_launches["pairs_cg"], k1)
+                             stream_launches["pairs_cg"], k1)
+    k1_entry.update(slice_counts("pairs_cg"))
     k1_entry.update(launches_lm=launches["pairs_cg"],
                     launches_hypotheses=option_launches["hypotheses"][
                         "pairs_cg"],
@@ -3093,7 +3606,8 @@ def main() -> int:
                     launches_cli=pairs_cli["pairs_cg"])
     k2_entry = _kernel_entry("data_gram", "super_tpu_torch/csrc/tuple_gram.cu",
                              "super_tpu/pallas_kernels/gram.py:33",
-                             e2e_launches["data_gram"], k2_fused)
+                             stream_launches["data_gram"], k2_fused)
+    k2_entry.update(slice_counts("data_gram"))
     k2_entry.update(launches_lm=launches["data_gram"],
                     launches_ssim_conf=ssim_launches["data_gram"],
                     launches_observe=observe_launches["data_gram"],

@@ -2,7 +2,7 @@
 line.
 
     python -m super_tpu_torch.bench [--reps 30] [--no_dense] [--cpu]
-                                    [--mode step|lm]
+                                    [--mode step|lm] [--streams 1]
                                     [--association per_frame|per_iteration]
                                     [--sol]
                                     [--height 480 --width 640
@@ -45,12 +45,22 @@ solve and one fusion, each a stage, its ``ms`` the device time alone (the
 kernels' sum under ``torch.profiler``, over the calls: ``device_ms``)
 beside the time between CUDA events (``events_ms``); on the CPU the host
 clock's (``host_ms``).  It writes no file.  On the card unless ``--cpu``.
+
+``--streams B`` tracks B copies of the stream at once, as the root
+bench's ``--streams`` does: the headline, ``per_iteration_hz`` and
+``dense_mesh16_hz`` (and ``--mode lm``) run B streams through
+parallel/sharded.py:make_batched_step (B solves a trip for ``--mode
+lm``); ``value`` and ``cold_start_hz`` are all B streams' frames a
+second, ``per_stream_hz`` (and ``vs_baseline``) a stream's, and the
+sweep's two other rates a stream's too.  The other workloads run one
+stream.  ``--streams 1`` is the single-stream loop itself.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import subprocess
 import time
@@ -103,20 +113,35 @@ def _workload(cfg, device, seed: int = 0):
     return intr, frame_of
 
 
-def measure_step(cfg, reps: int, device, seed: int = 0, cold: bool = False):
-    """(frames/s of the timed pass, overflow maxima over it).  With
-    ``cold`` the overflow dict also holds ``cold_start_hz`` and
-    ``cold_add_deferred``: a third run, from the frame-0 state again."""
+def measure_step(cfg, reps: int, device, seed: int = 0, cold: bool = False,
+                 streams: int = 1):
+    """(frames/s of the timed pass, all streams', overflow maxima over it).
+    With ``cold`` the overflow dict also holds ``cold_start_hz`` and
+    ``cold_add_deferred``: a third run, from the frame-0 state again.
+    ``streams`` > 1 tracks that many copies of the stream through
+    make_batched_step."""
     from super_tpu_torch.core.tracker import init_tracker, track_step
+    from super_tpu_torch.parallel.sharded import make_batched_step
 
     intr, frame_of = _workload(cfg, device, seed)
+    state0 = init_tracker(cfg, frame_of(0))
+    step = functools.partial(track_step, cfg, intr)
+    if streams > 1:
+        # The stream broadcast B times (views), as the root bench's
+        # jnp.broadcast_to: the step writes none of its inputs.
+        step = make_batched_step(cfg, intr)
+        frames = {t: _broadcast(frame_of(t), streams) for t in (1, 2)}
+        frame_of = frames.__getitem__
+        state0 = _broadcast(state0, streams)
 
     def run(state):
         diag = None
         for i in range(reps):
-            state, outs = track_step(cfg, intr, state, frame_of(1 + i % 2))
+            state, outs = step(state, frame_of(1 + i % 2))
             d = torch.stack([getattr(outs, n).to(torch.int64)
                              for _, n in OVERFLOW])
+            if streams > 1:
+                d = d.amax(dim=1)
             diag = d if diag is None else torch.maximum(diag, d)
         return state, diag
 
@@ -129,22 +154,30 @@ def measure_step(cfg, reps: int, device, seed: int = 0, cold: bool = False):
 
     # track_step makes new tensors and writes none of its input state's
     # (tests/test_torch_bench.py), so state0 serves the cold run too.
-    state0 = init_tracker(cfg, frame_of(0))
     state, _ = run(state0)                 # warm-up: builds, converges
     state, diag, dt = timed(state)
     keys = [k for k, _ in OVERFLOW]
     overflow = dict(zip(keys, diag.tolist()))
     if cold:
         _, diag_c, dt_c = timed(state0)
-        overflow["cold_start_hz"] = round(reps / dt_c, 3)
+        overflow["cold_start_hz"] = round(streams * reps / dt_c, 3)
         overflow["cold_add_deferred"] = dict(zip(keys, diag_c.tolist()))[
             "add_deferred"]
-    return reps / dt, overflow
+    return streams * reps / dt, overflow
 
 
-def measure_lm(cfg, reps: int, device, seed: int = 0) -> float:
-    """LM frame-solves/s: ``prepare_lm`` once on frame 1 from the frame-0
-    state, then ``lm_solve`` ``reps`` times after one warm-up solve."""
+def _broadcast(tree, b: int):
+    """A state or frame as a stacked batch of ``b`` streams (views)."""
+    from super_tpu_torch.utils.tree import tree_map
+
+    return tree_map(lambda x: x.expand((b,) + x.shape), tree)
+
+
+def measure_lm(cfg, reps: int, device, seed: int = 0,
+               streams: int = 1) -> float:
+    """LM frame-solves/s, all streams': ``prepare_lm`` once on frame 1
+    from the frame-0 state, then ``lm_solve`` ``reps`` times after one
+    warm-up solve, each time once per stream."""
     from super_tpu_torch.core.lm import lm_solve
     from super_tpu_torch.core.losses import prepare_lm
     from super_tpu_torch.core.tracker import init_tracker
@@ -155,10 +188,10 @@ def measure_lm(cfg, reps: int, device, seed: int = 0) -> float:
     lm_solve(cfg, ctx, intr)
     _sync(device)
     tic = time.perf_counter()
-    for _ in range(reps):
+    for _ in range(reps * streams):
         lm_solve(cfg, ctx, intr)
     _sync(device)
-    return reps / (time.perf_counter() - tic)
+    return streams * reps / (time.perf_counter() - tic)
 
 
 def _stage_ms(fn, reps: int, device) -> dict:
@@ -289,17 +322,20 @@ def _device_fields(device) -> dict:
                     text=True, check=True).stdout.strip().splitlines()[0])
 
 
-def _line(metric: str, hz: float) -> dict:
+def _line(metric: str, hz: float, streams: int = 1) -> dict:
+    """The line's leading fields for ``hz``, all streams' rate."""
+    per_stream = hz / streams
     return dict(metric=metric, value=round(hz, 3), unit="frames/s/chip",
-                vs_baseline=round(hz / 30.0, 4), streams=1,
-                per_stream_hz=round(hz, 3), loop="host")
+                vs_baseline=round(per_stream / 30.0, 4), streams=streams,
+                per_stream_hz=round(per_stream, 3), loop="host")
 
 
 def measure(reps: int = 30, device="cuda", height: int = 480,
             width: int = 640, mesh_step: int = 30, dense: bool = True,
-            association=None, sol: bool = False):
+            association=None, sol: bool = False, streams: int = 1):
     """The JSON line's fields.  With ``association`` only the headline,
-    with that association; with ``sol`` also the ``sol`` block."""
+    with that association; with ``sol`` also the ``sol`` block;
+    ``streams`` as ``--streams``."""
     from super_tpu_torch.config import e2e_depth_workload_config, \
         lm_workload_config, semantic_workload_config
 
@@ -307,24 +343,26 @@ def measure(reps: int = 30, device="cuda", height: int = 480,
     if association is not None:
         cfg = cfg.replace(solver=dataclasses.replace(
             cfg.solver, association=association))
-    hz, overflow = measure_step(cfg, reps, device, cold=True)
-    out = _line(METRIC, hz)
+    hz, overflow = measure_step(cfg, reps, device, cold=True,
+                                streams=streams)
+    out = _line(METRIC, hz, streams)
     out["cold_start_hz"] = overflow.pop("cold_start_hz")
     out["cold_add_deferred"] = overflow.pop("cold_add_deferred")
     out["overflow"] = overflow
     if association is None:
         per_it = cfg.replace(solver=dataclasses.replace(
             cfg.solver, association="per_iteration"))
-        hz_it, overflow_it = measure_step(per_it, reps, device)
-        out["per_iteration_hz"] = round(hz_it, 3)
+        hz_it, overflow_it = measure_step(per_it, reps, device,
+                                          streams=streams)
+        out["per_iteration_hz"] = round(hz_it / streams, 3)
         out["per_iteration_overflow"] = overflow_it
         if dense:
             # The root bench's max(6, reps // 5) frames, never more than
             # reps.
             hz_d, overflow_d = measure_step(
                 lm_workload_config(height, width, 16),
-                min(reps, max(6, reps // 5)), device)
-            out["dense_mesh16_hz"] = round(hz_d, 3)
+                min(reps, max(6, reps // 5)), device, streams=streams)
+            out["dense_mesh16_hz"] = round(hz_d / streams, 3)
             out["dense_overflow"] = overflow_d
         # The root bench's max(6, reps // 3) frames, never more than reps.
         hz_s, overflow_s = measure_step(
@@ -355,6 +393,9 @@ def main():
     ap.add_argument("--no_dense", action="store_true",
                     help="skip the dense mesh-16 workload")
     ap.add_argument("--mode", default="step", choices=["step", "lm"])
+    ap.add_argument("--streams", type=int, default=1,
+                    help="concurrent copies of the stream (the root "
+                         "bench's --streams)")
     ap.add_argument("--association", default=None,
                     choices=["per_frame", "per_iteration"],
                     help="measure the headline with this association only "
@@ -365,6 +406,8 @@ def main():
                     help="run on the CPU (a check of the loop, not a "
                          "measurement of the card)")
     args = ap.parse_args()
+    if args.streams < 1:
+        ap.error("--streams must be at least 1")
     if args.cpu:
         device = torch.device("cpu")
     elif torch.cuda.is_available():
@@ -378,12 +421,13 @@ def main():
         cfg = lm_workload_config(args.height, args.width, args.mesh_step_size)
         cfg = cfg.replace(solver=dataclasses.replace(
             cfg.solver, association=args.association or "per_frame"))
-        out = dict(_line(LM_METRIC, measure_lm(cfg, args.reps, device)),
-                   **_device_fields(device))
+        out = dict(_line(LM_METRIC, measure_lm(cfg, args.reps, device,
+                                               streams=args.streams),
+                         args.streams), **_device_fields(device))
     else:
         out = measure(args.reps, device, args.height, args.width,
                       args.mesh_step_size, not args.no_dense,
-                      args.association, args.sol)
+                      args.association, args.sol, args.streams)
     print(json.dumps(out))
 
 

@@ -7,7 +7,10 @@ package's NamedTuples with numpy leaves.  Nothing here imports JAX: the
 caller turns JAX arrays into numpy (``np.asarray``) on its side.
 
 Leaves are normalised to the port's types: floats to float32, integers to
-int32, booleans stay booleans.
+int32, booleans stay booleans.  A stacked batch of B streams (the JAX
+package's ``vmap`` layout, every leaf with a leading B) converts the same
+way, into the port's stacked states and frames (parallel/sharded.py:
+make_batched_step), and back.
 """
 
 from __future__ import annotations

@@ -356,7 +356,13 @@ def solve_damped(cfg: SuPerConfig, layout, jtj, rhs, u, j_cap: int, x0):
     return x * inv_d
 
 
-def lm_solve(cfg: SuPerConfig, ctx: LMContext, intr: Intrinsics) -> LMResult:
+def lm_solve(cfg: SuPerConfig, ctx: LMContext, intr: Intrinsics,
+             group=None) -> LMResult:
+    """The LM warp solve of one frame.  With a ``torch.distributed``
+    process ``group`` (the JAX package's ``axis_name``) the context holds
+    this process's slice of the surfel slots (parallel/sharded.py:
+    shard_ctx): every assembly and cost pass is summed over the group, and
+    each process solves the same reduced system."""
     sol = cfg.solver
     if sol.jtj_dtype == "bf16" and sol.linear_solver != "pcg":
         raise ValueError(
@@ -397,7 +403,8 @@ def lm_solve(cfg: SuPerConfig, ctx: LMContext, intr: Intrinsics) -> LMResult:
             if per_it_frozen:
                 with record_function("lm.associate"):
                     a = associate(cfg, ctx, intr, beta=beta)
-            return assemble_normal_equations(cfg, ctx, beta, intr, a)
+            return assemble_normal_equations(cfg, ctx, beta, intr, a,
+                                             group=group)
 
     def solve(jtj, jtr, u, x0):
         with record_function("lm.solve"):
@@ -407,10 +414,10 @@ def lm_solve(cfg: SuPerConfig, ctx: LMContext, intr: Intrinsics) -> LMResult:
 
     if sol.lm_hypotheses > 1:
         return _lm_solve_hypotheses(cfg, ctx, intr, assoc, beta0, u0,
-                                    assemble, solve)
+                                    assemble, solve, group)
     if sol.lm_schedule == "classic":
         return _lm_solve_classic(cfg, ctx, intr, assoc, beta0, u0, assemble,
-                                 solve)
+                                 solve, group)
 
     beta_cand, best_beta = beta0, beta0
     best_cost = torch.full((), 1e10, dtype=dtype, device=dev)
@@ -440,7 +447,7 @@ def lm_solve(cfg: SuPerConfig, ctx: LMContext, intr: Intrinsics) -> LMResult:
         delta_prev = delta
 
     with record_function("lm.final_cost"):
-        cost_c = total_cost(cfg, ctx, beta_cand, intr, assoc)
+        cost_c = total_cost(cfg, ctx, beta_cand, intr, assoc, group=group)
     accept = torch.isfinite(cost_c) & (cost_c < best_cost)
     best_beta = torch.where(accept, beta_cand, best_beta)
     best_cost = torch.where(accept, cost_c, best_cost)
@@ -449,7 +456,7 @@ def lm_solve(cfg: SuPerConfig, ctx: LMContext, intr: Intrinsics) -> LMResult:
 
 
 def _lm_solve_classic(cfg: SuPerConfig, ctx: LMContext, intr, assoc, beta0,
-                      u0, assemble, solve) -> LMResult:
+                      u0, assemble, solve, group=None) -> LMResult:
     """The reference loop: assemble at the accepted point, solve, judge the
     candidate by a separate cost pass (the JAX package's classic body)."""
     v = cfg.solver.lm_damping_factor
@@ -464,7 +471,7 @@ def _lm_solve_classic(cfg: SuPerConfig, ctx: LMContext, intr, assoc, beta0,
         delta, ok = solve(jtj, jtr, u, delta_prev)
         beta_new = beta + delta.reshape(beta.shape)
         with record_function("lm.cost"):
-            cost = total_cost(cfg, ctx, beta_new, intr, assoc)
+            cost = total_cost(cfg, ctx, beta_new, intr, assoc, group=group)
         accept = ok & (cost < best_cost)
         best_beta = torch.where(accept, beta_new, best_beta)
         best_cost = torch.where(accept, cost, best_cost)
@@ -475,7 +482,7 @@ def _lm_solve_classic(cfg: SuPerConfig, ctx: LMContext, intr, assoc, beta0,
 
 
 def _lm_solve_hypotheses(cfg: SuPerConfig, ctx: LMContext, intr, assoc,
-                         beta0, u0, assemble, solve) -> LMResult:
+                         beta0, u0, assemble, solve, group=None) -> LMResult:
     """H = ``lm_hypotheses`` dampings a trip (the JAX package's
     ``_lm_solve_hypotheses``; ``lm_schedule`` is not read): one assembly at
     the accepted point, H cold-started solves with u v^-(H-1), ..., u v^-1,
@@ -500,7 +507,7 @@ def _lm_solve_hypotheses(cfg: SuPerConfig, ctx: LMContext, intr, assoc,
             delta, ok = solve(jtj, jtr, us[h], None)
             cand = beta + delta.reshape(j_cap, 7)
             with record_function("lm.cost"):
-                cost = total_cost(cfg, ctx, cand, intr, assoc)
+                cost = total_cost(cfg, ctx, cand, intr, assoc, group=group)
             cands.append(cand)
             costs.append(torch.where(ok, cost, float("inf")))
         # A (1,) index: a 0-dim tensor index would be read on the host.

@@ -34,6 +34,7 @@ import functools
 from typing import NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 
 from super_tpu_torch.config import SuPerConfig
 from super_tpu_torch.core import assembly
@@ -215,14 +216,9 @@ def prepare_lm(cfg: SuPerConfig, surfels: SurfelState, graph: GraphState,
                       slot_tuple=None, sf_knn_idx=surfels.knn_idx,
                       sf_knn=sf_knn,
                       sf_diff=surfels.points.repeat(k, 1) - sf_knn)
-        chunk = assembly_chunk_size(idx.shape[1], sol.assembly_chunk)
-        plans["chunk_plans"] = tuple(
-            _node_pair_plan(idx[:, s:s + chunk].T[:, :, None],
-                            idx[:, s:s + chunk].T[:, None, :], j_cap,
-                            surfels.active[s:s + chunk, None, None])
-            for s in range(0, idx.shape[1], chunk))
-        plans["jtr_plan"] = segment_plan(
-            torch.where(surfels.active[:, None], idx.T, j_cap), j_cap + 1)
+        plans.update(scatter_plans(idx, surfels.active, j_cap,
+                                   assembly_chunk_size(idx.shape[1],
+                                                       sol.assembly_chunk)))
 
     ed_idx = graph.knn_idx.long()
     d_eds = graph.points[:, None, :] - graph.points[ed_idx]
@@ -252,6 +248,21 @@ def assembly_chunk_size(np_cap: int, target: int) -> int:
     while np_cap % c != 0:
         c //= 2
     return max(c, 1)
+
+
+def scatter_plans(knn_idx, active, j_cap: int, chunk: int) -> dict:
+    """The scatter assembly's plans (:class:`LMContext`) for slots with
+    anchors ``knn_idx`` (K, N) and mask ``active`` (N,): a node-pair plan
+    per ``chunk`` of slots, and the slots' anchor J^T r rows by node, the
+    inactive slots' in a sink segment."""
+    idx = knn_idx.long()
+    chunk_plans = tuple(
+        _node_pair_plan(idx[:, s:s + chunk].T[:, :, None],
+                        idx[:, s:s + chunk].T[:, None, :], j_cap,
+                        active[s:s + chunk, None, None])
+        for s in range(0, idx.shape[1], chunk))
+    return dict(chunk_plans=chunk_plans, jtr_plan=segment_plan(
+        torch.where(active[:, None], idx.T, j_cap), j_cap + 1))
 
 
 def _node_pair_plan(rows, cols, j_cap: int, valid=None):
@@ -657,8 +668,28 @@ def rot_term_jacobian(beta, active, weight: float):
             active)
 
 
+def group_size(group) -> int:
+    """Processes of ``group`` (1 for None, a single process)."""
+    return 1 if group is None else dist.get_world_size(group)
+
+
+def all_reduce_sum(tensors, group):
+    """Each tensor summed over ``group``'s processes, in place of the JAX
+    package's ``psum``: the tensors of one dtype packed into one flat
+    buffer, one all-reduce a dtype.  Every process gets the same sums."""
+    out = list(tensors)
+    for dtype in dict.fromkeys(t.dtype for t in out):
+        pos = [i for i, t in enumerate(out) if t.dtype == dtype]
+        flat = torch.cat([out[i].reshape(-1) for i in pos])
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+        for i, part in zip(pos, flat.split([out[i].numel() for i in pos])):
+            out[i] = part.view(out[i].shape)
+    return out
+
+
 def assemble_normal_equations(cfg: SuPerConfig, ctx: LMContext, beta,
-                              intr: Intrinsics, assoc: Optional[Assoc]):
+                              intr: Intrinsics, assoc: Optional[Assoc],
+                              group=None):
     """Normal equations and cost at ``beta``: (jtj, jtr (7J,), cost).
 
     jtj is the (P, 49) pair form (symmetric-half pair blocks) for the
@@ -667,12 +698,19 @@ def assemble_normal_equations(cfg: SuPerConfig, ctx: LMContext, beta,
     target (see :func:`data_normal_equations`).  The graph terms' blocks
     and J^T r rows are summed in a fixed order by the plans of
     :func:`prepare_lm`.
+
+    With a process ``group`` of n (``torch.distributed``; the JAX
+    package's ``axis_name``) the context holds this process's slice of the
+    surfel slots (parallel/sharded.py:shard_ctx): the data term is summed
+    over the slice, the graph terms, whole on every process, are scaled by
+    1/sqrt(n), and jtj, jtr and the cost are summed over the group.
     """
     _check_supported(cfg)
     j_cap = ctx.ed_mask.shape[0]
     dim = 7 * j_cap
     losses = cfg.losses
     form = jtj_form(cfg)
+    graph_scale = group_size(group) ** -0.5
     acc_dtype = torch.bfloat16 if cfg.solver.jtj_dtype == "bf16" else \
         beta.dtype
     if form == "pairs":
@@ -690,6 +728,8 @@ def assemble_normal_equations(cfg: SuPerConfig, ctx: LMContext, beta,
     graph_rows, blocks = [], []
     if losses.mesh_arap:
         r, g, idx, _ = arap_term_jacobian(ctx, beta, losses.mesh_arap_weight)
+        if group is not None:
+            r, g = r * graph_scale, g * graph_scale
         cost = cost + torch.sum(r * r)
         jk = r.shape[0] * r.shape[1]
         r2 = r.reshape(jk, 3)
@@ -712,6 +752,8 @@ def assemble_normal_equations(cfg: SuPerConfig, ctx: LMContext, beta,
                        for a in range(2) for b in range(2)]
     if losses.mesh_rot:
         r, g, _ = rot_term_jacobian(beta, ctx.ed_mask, losses.mesh_rot_weight)
+        if group is not None:
+            r, g = r * graph_scale, g * graph_scale
         cost = cost + torch.sum(r * r)
         jtr = jtr - g * r[:, None]
         ggt = g[:, :, None] * g[:, None, :]
@@ -740,22 +782,33 @@ def assemble_normal_equations(cfg: SuPerConfig, ctx: LMContext, beta,
     if form == "blocks":
         jtj = jtj[:j_cap * j_cap].reshape(j_cap, j_cap, 7, 7).permute(
             0, 2, 1, 3).reshape(dim, dim).to(acc_dtype)
-    return jtj, jtr.reshape(dim), cost
+    jtr = jtr.reshape(dim)
+    if group is not None:
+        jtj, jtr, cost = all_reduce_sum((jtj, jtr, cost), group)
+    return jtj, jtr, cost
 
 
 def total_cost(cfg: SuPerConfig, ctx: LMContext, beta, intr: Intrinsics,
-               assoc: Optional[Assoc]):
+               assoc: Optional[Assoc], group=None):
     """Scalar objective of the LM accept/reject test; the data term by
-    sampling the target at ``beta`` where ``assoc`` is None."""
+    sampling the target at ``beta`` where ``assoc`` is None.  With a
+    process ``group`` of n, the data term over this process's slots, the
+    graph terms scaled by 1/n, summed over the group (as
+    :func:`assemble_normal_equations`)."""
     losses = cfg.losses
     total = beta.new_zeros(())
+    inv_n = 1.0 / group_size(group)
     if losses.sf_point_plane:
         total = total + data_term_cost(cfg, ctx, beta, intr,
                                        losses.sf_point_plane_weight, assoc)
     if losses.mesh_arap:
         r = arap_term_residual(ctx, beta, losses.mesh_arap_weight)
-        total = total + torch.sum(r * r)
+        graph = torch.sum(r * r)
+        total = total + (graph if group is None else inv_n * graph)
     if losses.mesh_rot:
         r = rot_term_residual(beta, ctx.ed_mask, losses.mesh_rot_weight)
-        total = total + torch.sum(r * r)
+        graph = torch.sum(r * r)
+        total = total + (graph if group is None else inv_n * graph)
+    if group is not None:
+        (total,) = all_reduce_sum((total,), group)
     return total

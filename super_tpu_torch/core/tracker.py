@@ -91,6 +91,17 @@ class StepOutputs(NamedTuple):
     dup_skipped: torch.Tensor      # duplicate merges deferred
 
 
+def layout_overflow(ctx, device):
+    """(tuple_overflow, pair_overflow) of an LM context's layout; with no
+    layout (scatter assembly) or no pair table nothing overflows."""
+    zero = torch.zeros((), dtype=torch.int32, device=device)
+    lay = ctx.layout
+    tuple_overflow = zero if lay is None else lay.overflow_count
+    pair_overflow = zero if lay is None or lay.pair_overflow is None \
+        else lay.pair_overflow
+    return tuple_overflow, pair_overflow
+
+
 def track_step(cfg: SuPerConfig, intr: Intrinsics, state: TrackerState,
                frame: FrameData, models=None,
                prev_color=None) -> Tuple[TrackerState, StepOutputs]:
@@ -106,12 +117,7 @@ def track_step(cfg: SuPerConfig, intr: Intrinsics, state: TrackerState,
             surfels, graph = apply_deformation(cfg, state.surfels,
                                                state.graph, result.beta)
         cost, damping = result.cost, result.final_damping
-        # No layout (scatter assembly) or no pair table: nothing overflows.
-        zero = torch.zeros((), dtype=torch.int32, device=frame.points.device)
-        lay = ctx.layout
-        tuple_overflow = zero if lay is None else lay.overflow_count
-        pair_overflow = zero if lay is None or lay.pair_overflow is None \
-            else lay.pair_overflow
+        overflow = layout_overflow(ctx, frame.points.device)
     else:
         with record_function("step.graph_fit"):
             deform, cost = graph_fit(cfg, state.surfels, state.graph, frame,
@@ -123,8 +129,18 @@ def track_step(cfg: SuPerConfig, intr: Intrinsics, state: TrackerState,
                                                global_dq=deform[-1])
         damping = torch.zeros((), dtype=torch.float32,
                               device=frame.points.device)
-        tuple_overflow = pair_overflow = torch.zeros(
-            (), dtype=torch.int32, device=frame.points.device)
+        overflow = (torch.zeros((), dtype=torch.int32,
+                                device=frame.points.device),) * 2
+    return finish_step(cfg, intr, state, frame, surfels, graph, cost,
+                       damping, overflow)
+
+
+def finish_step(cfg: SuPerConfig, intr: Intrinsics, state: TrackerState,
+                frame: FrameData, surfels: SurfelState, graph: GraphState,
+                cost, damping, overflow) -> Tuple[TrackerState, StepOutputs]:
+    """The step after the warp is applied: fuse the frame, prune, refresh
+    the projections, and the frame's outputs; ``overflow`` is the solve's
+    (tuple_overflow, pair_overflow)."""
     with record_function("step.fuse_frame"):
         surfels, remap, fdiag = fusion_mod.fuse_frame(cfg, intr, surfels,
                                                       graph, frame)
@@ -142,7 +158,7 @@ def track_step(cfg: SuPerConfig, intr: Intrinsics, state: TrackerState,
     outs = StepOutputs(
         lm_cost=cost, lm_damping=damping,
         num_surfels=surfels.num_active, num_nodes=graph.num_active,
-        tuple_overflow=tuple_overflow, pair_overflow=pair_overflow,
+        tuple_overflow=overflow[0], pair_overflow=overflow[1],
         proj_overflow=fdiag.proj_overflow, add_overflow=fdiag.add_overflow,
         free_exhausted=fdiag.free_exhausted, dup_skipped=fdiag.dup_skipped)
     return TrackerState(surfels=surfels, graph=graph, track=track,

@@ -1,5 +1,6 @@
 """The port stands alone: no module of super_tpu_torch, and not
-chip_smoke.py, imports JAX (or flax, optax, orbax), the JAX package
+chip_smoke.py or the multi-process tests' worker
+(tests/torch_parallel_worker.py), imports JAX (or flax, optax, orbax), the JAX package
 ``super_tpu``, or the root CLIs and bench (run_super, run_semantic_super,
 bench); nor tensorboard or matplotlib, which the card machine lacks.
 Each file is parsed, not imported, so an import inside a function counts
@@ -19,7 +20,8 @@ FORBIDDEN_ANYWHERE = ("tensorboard", "matplotlib")
 
 
 def _port_files():
-    out = [os.path.join(REPO, "chip_smoke.py")]
+    out = [os.path.join(REPO, "chip_smoke.py"),
+           os.path.join(REPO, "tests", "torch_parallel_worker.py")]
     for root, _, files in os.walk(os.path.join(REPO, "super_tpu_torch")):
         out += [os.path.join(root, f) for f in sorted(files)
                 if f.endswith(".py")]

@@ -7,7 +7,11 @@ so everything handed to the JAX side is float32 explicitly.
 """
 
 import dataclasses
+import os
+import pickle
 import re
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -277,3 +281,54 @@ def check_track(runs, node_atol=1e-4):
                      "add_overflow", "free_exhausted", "dup_skipped"):
             assert int(getattr(g, name)) == int(getattr(w, name)), name
     assert np.max(np.abs(nodes_j - nodes_t)) < node_atol
+
+
+# The port's multi-process tests: workers of tests/torch_parallel_worker.py,
+# which imports no JAX, on inputs pickled without JAX types.
+WORKER = os.path.join(os.path.dirname(__file__), "torch_parallel_worker.py")
+JOIN_TIMEOUT = 300       # seconds a worker may take
+
+
+def start_workers(scenario, world, root):
+    """Start ``world`` workers of ``scenario`` on the inputs in ``root``."""
+    return [subprocess.Popen(
+        [sys.executable, WORKER, scenario, str(r), str(world), str(root)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for r in range(world)]
+
+
+def join_workers(scenario, procs, root):
+    """Wait for the workers (each at most JOIN_TIMEOUT); their outputs by
+    rank."""
+    world = len(procs)
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=JOIN_TIMEOUT)[0].decode(
+                errors="replace"))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, f"{scenario} rank {r}:\n{log[-4000:]}"
+    outs = []
+    for r in range(world):
+        with open(os.path.join(root, f"{scenario}_{r}.pkl"), "rb") as f:
+            outs.append(pickle.load(f))
+    return outs
+
+
+def write_inputs(root, **inp):
+    with open(root / "inputs.pkl", "wb") as f:
+        pickle.dump(inp, f)
+
+
+def same_bits(a, b):
+    """Bitwise equal (nested) results."""
+    la = jax.tree.leaves(a)
+    lb = jax.tree.leaves(b)
+    assert len(la) == len(lb)
+    for x, y in zip(la, lb):
+        np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
