@@ -159,6 +159,27 @@ line's launches of K1, ``data_gram`` and the segment sum are the
 ``streams`` run's, each earlier path's beside (``launches_e2e_depth``,
 the sharded and stream-mesh runs' per process).
 
+The compiled step (this slice's main path): ``graph`` runs
+``make_jit_step``, ``track_step`` captured as a CUDA graph and replayed.
+The headline: 2 eager frames, the capture, then 5 replays from that
+state, each frame's state and outputs bitwise the eager step's; 20 more
+replays of the first, bitwise, and the segment sum's tickets 0 after;
+the launches a replay (K1 10, ``data_gram`` 10, the segment sum 40) by
+the counters and by a profiler trace of one replay; the untraced
+ms/frame of the eager and the captured step in turns, 3 each; the
+device busy share, device ms and kernels of a traced replay and a
+traced eager frame; peak memory.  Every other LM path of
+``config.WORKLOADS`` (``dense16`` K1b, ``pcg_pallas`` K3,
+``per_iteration`` ``tuple_gram``, ``cholesky``, ``pcg``, ``e2e_depth``'s
+step and the option paths): 3 replays from the frame-0 state, bitwise
+the eager frames, their launches the eager step's.  Four streams in one
+graph (``make_batched_step``), each bitwise its eager single track;
+``SuPerPipeline`` compiled against eager (tracks, errors, final state
+bitwise; both p50s); the bench's headline on the device-resident loop
+and on ``--host_loop``.  The pipelines, the stream batch, the CLIs and
+the bench of the other phases run the compiled steps too.  The kernels
+line's ``launches_graph`` are the ``graph`` phase's replays.
+
 Launch counts are set to 0 just before a path runs and read just after.
 Each phase prints one JSON line; any failure raises and exits non-zero.  The
 run ends with a ``{"kernels": [...]}`` summary line, the card's name and
@@ -3467,6 +3488,375 @@ def phase_cli_semantic(root, dirs):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The compiled step: make_jit_step's CUDA graph of track_step, replayed by
+# the pipeline, the stream batch and the bench's device-resident loop.
+
+GRAPH_WARM = 2                     # eager frames before the capture
+GRAPH_FRAMES = 5                   # replayed frames held to the eager step
+GRAPH_REPEATS = 20                 # more replays of one frame, bitwise
+GRAPH_TURNS = 3                    # timing turns, eager and captured
+GRAPH_PATH_FRAMES = 3              # replayed frames of every other LM path
+GRAPH_STREAM_FRAMES = 2            # replayed batches of the streams check
+GRAPH_PIPELINE_FRAMES = 8          # SuPerPipeline frames, graph and eager
+# The kernels of a trace, by a piece of their (demangled) names.
+TRACE_KERNELS = {"pairs_cg": "pairs_cg_kernel<float>",
+                 "pairs_cg_chunked": "pairs_cg_kernel<__nv_bfloat16>",
+                 "data_gram": "gram_kernel<(anonymous namespace)::Data>",
+                 "tuple_gram": "gram_kernel<(anonymous namespace)::Memory>",
+                 "dense_cg": "dense_cg_kernel",
+                 "segment_sum": "segment_sum_kernel"}
+
+
+def _bits(a, b):
+    """Bit for bit equal trees of tensors (floats compared as integers of
+    their width: NaN payloads and signed zeros too)."""
+    from torch.utils import _pytree as pytree
+
+    la, lb = pytree.tree_leaves(a), pytree.tree_leaves(b)
+    if len(la) != len(lb):
+        return False
+    for x, y in zip(la, lb):
+        if x.dtype != y.dtype or x.shape != y.shape:
+            return False
+        if x.is_floating_point():
+            width = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+            x, y = x.view(width[x.element_size()]), y.view(
+                width[y.element_size()])
+        if not torch.equal(x, y):
+            return False
+    return True
+
+
+def _zero_counts():
+    wrappers = _launch_counts()
+    for w in wrappers.values():
+        w.launches = 0
+    return wrappers
+
+
+def _counts(wrappers):
+    return {k: w.launches for k, w in wrappers.items()}
+
+
+def _trace_counts(fn):
+    """(kernels of one ``fn()`` by TRACE_KERNELS name, kernels in all,
+    their device ms, the host ms of the traced window) from a profiler
+    trace: independent of the wrappers' counters."""
+    from super_tpu_torch.utils.profiling import kernel_spans
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    spans = kernel_spans(prof)
+    by = {k: sum(piece in name for _, _, name in spans)
+          for k, piece in TRACE_KERNELS.items()}
+    device_ms = sum(k1 - k0 for k0, k1, _ in spans) / 1e3
+    return by, len(spans), device_ms, window_ms
+
+
+def _ms(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _graph_headline(dev, intr):
+    """The headline through make_jit_step (see :func:`phase_graph`)."""
+    from super_tpu_torch.config import workload_config
+    from super_tpu_torch.core.tracker import init_tracker, make_jit_step, \
+        track_step
+
+    cfg = workload_config("lm")
+    frames = _frames(cfg, intr, GRAPH_WARM + GRAPH_FRAMES + 1, dev)
+    state = init_tracker(cfg, frames[0])
+    for f in frames[1:GRAPH_WARM + 1]:
+        state, _ = track_step(cfg, intr, state, f)
+    warm, rest = state, frames[GRAPH_WARM + 1:]
+
+    def eager_run():
+        st, out = warm, []
+        for f in rest:
+            st, o = track_step(cfg, intr, st, f)
+            out.append((st, o))
+        return out
+
+    wrappers = _zero_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eager = eager_run()
+    torch.cuda.synchronize()
+    eager_launches = _counts(wrappers)
+    eager_peak = torch.cuda.max_memory_allocated()
+
+    step = make_jit_step(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    capture_ms = _ms(lambda: step(intr, warm, rest[0]))
+
+    def graph_run():
+        st, out = warm, []
+        for f in rest:
+            st, o = step(intr, st, f)
+            out.append((st, o))
+        return out
+
+    wrappers = _zero_counts()
+    got = graph_run()
+    torch.cuda.synchronize()
+    launches = _counts(wrappers)
+    graph_peak = torch.cuda.max_memory_allocated()
+    frames_bitwise = [_bits(g, e) for g, e in zip(got, eager)]
+    first = got[0]
+    repeats = [_bits(step(intr, warm, rest[0]), first)
+               for _ in range(GRAPH_REPEATS)]
+    tickets = [t for _, t in step._scratch.values()]
+    tickets_zero = all(bool((t == 0).all()) for t in tickets)
+
+    # One frame traced, the replay and the eager step.
+    def replay_one():
+        step(intr, warm, rest[0])
+
+    def eager_one():
+        track_step(cfg, intr, warm, rest[0])
+
+    wrappers = _zero_counts()
+    by_trace, n_graph, dev_graph, win_graph = _trace_counts(replay_one)
+    by_counter = _counts(wrappers)
+    by_trace_e, n_eager, dev_eager, win_eager = _trace_counts(eager_one)
+
+    turns = {"eager": [], "graph": []}
+    for _ in range(GRAPH_TURNS):
+        for name, one in (("eager", eager_one), ("graph", replay_one)):
+            turns[name].append(float(np.median([_ms(one)
+                                                for _ in rest])))
+    per_frame = {k: v // GRAPH_FRAMES for k, v in launches.items()}
+    want = {k: 0 for k in wrappers}
+    trips = cfg.solver.num_iterations
+    want.update(pairs_cg=trips, data_gram=trips,
+                segment_sum=SEGSUM_PER_TRIP * trips)
+    rec = dict(
+        path="lm", warm_frames=GRAPH_WARM, frames=len(rest),
+        frames_bitwise=frames_bitwise, repeats=len(repeats),
+        repeats_bitwise=all(repeats), tickets_zero=tickets_zero,
+        launches=launches, eager_launches=eager_launches,
+        launches_per_replay=per_frame, launches_trace=by_trace,
+        launches_counter_one_replay=by_counter,
+        launches_trace_eager=by_trace_e,
+        kernels_per_frame_trace=n_graph, kernels_per_frame_eager=n_eager,
+        device_ms_graph=dev_graph, device_ms_eager=dev_eager,
+        busy_graph=dev_graph / win_graph, busy_eager=dev_eager / win_eager,
+        traced_ms_graph=win_graph, traced_ms_eager=win_eager,
+        ms_eager=turns["eager"], ms_graph=turns["graph"],
+        capture_ms=capture_ms, peak_gb_graph=graph_peak / 1e9,
+        peak_gb_eager=eager_peak / 1e9)
+    ok = (all(frames_bitwise) and all(repeats) and tickets_zero
+          and launches == eager_launches and per_frame == want
+          and all(launches[k] == GRAPH_FRAMES * want[k] for k in want)
+          and by_counter == want
+          and {k: by_trace[k] for k in want} == want)
+    return rec, ok, launches
+
+
+def _graph_path(name, dev, intr):
+    """``name``'s step through make_jit_step, GRAPH_PATH_FRAMES replays
+    from the frame-0 state against as many eager frames."""
+    from super_tpu_torch.config import workload_config
+    from super_tpu_torch.core.tracker import init_tracker, make_jit_step, \
+        track_step
+
+    cfg = workload_config(name)
+    frames = _frames(cfg, intr, GRAPH_PATH_FRAMES + 1, dev)
+    state0 = init_tracker(cfg, frames[0])
+    wrappers = _zero_counts()
+    st, eager = state0, []
+    for f in frames[1:]:
+        st, o = track_step(cfg, intr, st, f)
+        eager.append((st, o))
+    eager_launches = _counts(wrappers)
+    rec = dict(path=name, linear_solver=cfg.solver.linear_solver,
+               association=cfg.solver.association,
+               frames=GRAPH_PATH_FRAMES)
+    try:
+        step = make_jit_step(cfg)
+        step(intr, state0, frames[1])                # warm-up, capture
+    except Exception as e:         # recorded: the phase fails below
+        rec.update(captured=False, error=f"{type(e).__name__}: {e}"[:600])
+        return rec, False, eager_launches
+    wrappers = _zero_counts()
+    st, got, times = state0, [], []
+    for f in frames[1:]:
+        t0 = time.perf_counter()
+        st, o = step(intr, st, f)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        got.append((st, o))
+    launches = _counts(wrappers)
+    bitwise = [_bits(g, e) for g, e in zip(got, eager)]
+    rec.update(captured=True, frames_bitwise=bitwise, launches=launches,
+               eager_launches=eager_launches, ms_graph=times)
+    return rec, all(bitwise) and launches == eager_launches, launches
+
+
+def _graph_streams(dev, intr):
+    """STREAMS streams in one graph (make_batched_step): stream s starts
+    from frame s and steps on frames s + 1, s + 2; each bitwise its eager
+    single track, launches those of the single tracks."""
+    from super_tpu_torch.config import workload_config
+    from super_tpu_torch.core.tracker import init_tracker, track_step
+    from super_tpu_torch.parallel.sharded import make_batched_step
+    from super_tpu_torch.utils.tree import stack, unstack
+
+    cfg = workload_config("lm")
+    n = GRAPH_STREAM_FRAMES
+    frames = _frames(cfg, intr, STREAMS + n, dev)
+    wrappers = _zero_counts()
+    singles = []
+    for s in range(STREAMS):
+        st, out = init_tracker(cfg, frames[s]), []
+        for f in frames[s + 1:s + 1 + n]:
+            st, o = track_step(cfg, intr, st, f)
+            out.append((st, o))
+        singles.append(out)
+    single_launches = _counts(wrappers)
+    states0 = stack([init_tracker(cfg, frames[s]) for s in range(STREAMS)])
+    batch = [stack([frames[s + 1 + t] for s in range(STREAMS)])
+             for t in range(n)]
+    step = make_batched_step(cfg, intr)
+    step(states0, batch[0])                          # warm-up, capture
+    wrappers = _zero_counts()
+    st, got, times = states0, [], []
+    for b in batch:
+        t0 = time.perf_counter()
+        st, o = step(st, b)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        got.append((st, o))
+    launches = _counts(wrappers)
+    launches_init = {k: v for k, v in single_launches.items()}
+    launches_init["segment_sum"] -= STREAMS * SEGSUM_AT_INIT
+    bitwise = [[_bits((unstack(g[0])[s], unstack(g[1])[s]), singles[s][t])
+                for t, g in enumerate(got)] for s in range(STREAMS)]
+    rec = dict(path="streams", streams=STREAMS, frames=n,
+               bitwise=bitwise, launches=launches,
+               single_launches=launches_init, ms_batch_graph=times,
+               captured=step.captured)
+    return rec, (all(all(b) for b in bitwise) and launches == launches_init
+                 and step.captured)
+
+
+def _graph_pipeline(dev, intr):
+    """SuPerPipeline on the headline with GT, compiled (the graphs) and
+    eager: tracks, errors and final state bitwise; p50 of both."""
+    from super_tpu_torch.config import workload_config
+    from super_tpu_torch.pipeline import SuPerPipeline
+
+    cfg = workload_config("lm")
+    n = GRAPH_PIPELINE_FRAMES
+    seq = _sequence(cfg, intr, n)
+    runs = {}
+    for compiled in (True, False):
+        pipe = SuPerPipeline(cfg, intr, device=dev, compiled=compiled)
+        m = pipe.run(seq.depths[:n], seq.colors[:n], gt_xy=seq.gt_xy[:n],
+                     gt_valid=seq.gt_valid[:n])
+        runs[compiled] = (pipe, m)
+    (g, gm), (e, em) = runs[True], runs[False]
+    tracks = all(np.array_equal(g.track_results[t], e.track_results[t])
+                 for t in e.track_results)
+    errors = all(np.array_equal(g.errors[t], e.errors[t]) for t in e.errors)
+    state = _bits(g.state, e.state)
+    rec = dict(path="pipeline", frames=n, loop_graph=g.loop,
+               loop_eager=e.loop, tracks_bitwise=tracks,
+               errors_bitwise=errors, state_bitwise=state,
+               p50_ms_graph=gm["p50_frame_ms"],
+               p50_ms_eager=em["p50_frame_ms"],
+               reproj_mean=gm["reproj_mean"],
+               ms_graph=[t * 1e3 for t in g.frame_times],
+               ms_eager=[t * 1e3 for t in e.frame_times])
+    return rec, (tracks and errors and state and g.loop == "graph"
+                 and e.loop == "eager")
+
+
+def _graph_bench(dev):
+    """The bench's headline rate on the device-resident loop and on the
+    host loop (6 frames, the cold start beside)."""
+    from super_tpu_torch import bench
+
+    lines = {}
+    for host_loop in (False, True):
+        out = bench.measure(reps=6, device=dev, association="per_frame",
+                            host_loop=host_loop)
+        print(json.dumps(out), flush=True)
+        lines["host" if host_loop else "device"] = out
+    rec = dict(path="bench", device_hz=lines["device"]["value"],
+               host_hz=lines["host"]["value"],
+               device_cold_hz=lines["device"]["cold_start_hz"],
+               host_cold_hz=lines["host"]["cold_start_hz"],
+               device_over_host=lines["device"]["value"]
+               / lines["host"]["value"],
+               loops=[lines["device"]["loop"], lines["host"]["loop"]])
+    return rec, rec["loops"] == ["device", "host"] and rec["device_hz"] > 0
+
+
+def phase_graph(dev, intr):
+    """make_jit_step at 480 x 640.  The headline: GRAPH_WARM eager frames,
+    then the capture, then GRAPH_FRAMES replays from that state, each
+    frame's state and outputs bitwise the eager step's; GRAPH_REPEATS more
+    replays of the first, bitwise (the segment sum's tickets and scratch),
+    its tickets 0 after; the launches a replay by the counters and by a
+    profiler trace of one replay (K1 10, data_gram 10, the segment sum
+    40); the untraced ms/frame of the eager and the captured step in
+    turns, GRAPH_TURNS each; device busy share, device ms and kernels of
+    a traced replay and a traced eager frame; peak memory.  Then every
+    other LM path of config.WORKLOADS, GRAPH_PATH_FRAMES replays each,
+    bitwise the eager step, launches the eager step's; STREAMS streams in
+    one graph; SuPerPipeline compiled against eager; the bench's headline
+    on both loops.  Returns the launches of the kernels' replays."""
+    from super_tpu_torch.config import WORKLOADS, workload_config
+
+    t0 = time.perf_counter()
+    records, bad = [], []
+    rec, ok, head = _graph_headline(dev, intr)
+    emit(dict(phase="graph", **rec, ok=ok))
+    records.append(rec)
+    if not ok:
+        bad.append("lm")
+    launches = dict(head)
+    paths = [n for n in WORKLOADS if n != "lm"
+             and workload_config(n).solver.use_derived_gradient]
+    for name in paths:
+        rec, ok, got = _graph_path(name, dev, intr)
+        emit(dict(phase="graph", **rec, ok=ok))
+        if not ok:
+            bad.append(name)
+        for k in ("pairs_cg_chunked", "tuple_gram", "dense_cg"):
+            if name == {"pairs_cg_chunked": "dense16",
+                        "tuple_gram": "per_iteration",
+                        "dense_cg": "pcg_pallas"}[k]:
+                launches[k] = got[k]
+    for part in (_graph_streams, _graph_pipeline):
+        rec, ok = part(dev, intr)
+        emit(dict(phase="graph", **rec, ok=ok))
+        if not ok:
+            bad.append(rec["path"])
+    rec, ok = _graph_bench(dev)
+    emit(dict(phase="graph", **rec, ok=ok))
+    if not ok:
+        bad.append("bench")
+    emit(dict(phase="graph_summary", paths=["lm"] + paths, failed=bad,
+              launches_graph=launches,
+              seconds=time.perf_counter() - t0))
+    if bad:
+        raise RuntimeError(f"graph phase failed on {bad}")
+    return launches
+
+
 def _kernel_entry(name, source, replaces, launches, phase):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=launches, max_abs_err=phase["max_abs_err"],
@@ -3541,6 +3931,8 @@ def main() -> int:
     stream_launches = phase_streams(dev, cfg, intr)
     sharded_launches, mesh_launches = phase_parallel(dev, cfg, intr)
     phase_bench_streams(dev)
+    # This slice's main path: the compiled step.
+    graph_launches = phase_graph(dev, intr)
     # The timed phases are done: the workers' CPU load costs only the
     # CPU reference solves time from here on.
     pool, sequences = _start_sequences(intr, PIPELINE_SEEDS)
@@ -3570,7 +3962,8 @@ def main() -> int:
     # mesh's per process.  The segment sum's time is that of the semantic
     # fit's anchor rows, with the headline's pair rows beside.
     def slice_counts(name):
-        return dict(launches_e2e_depth=e2e_launches[name],
+        return dict(launches_graph=graph_launches[name],
+                    launches_e2e_depth=e2e_launches[name],
                     launches_sharded_per_process=sharded_launches[name],
                     launches_stream_mesh_per_process=mesh_launches[name])
 
@@ -3614,20 +4007,23 @@ def main() -> int:
                     launches_cli=pairs_cli["data_gram"])
     emit({"kernels": [
         k1_entry,
-        _kernel_entry("pairs_cg_chunked",
-                      "super_tpu_torch/csrc/pairs_cg.cu",
-                      "super_tpu/pallas_kernels/pcg.py:177",
-                      dense_launches["pairs_cg_chunked"], k1b),
+        dict(_kernel_entry("pairs_cg_chunked",
+                           "super_tpu_torch/csrc/pairs_cg.cu",
+                           "super_tpu/pallas_kernels/pcg.py:177",
+                           dense_launches["pairs_cg_chunked"], k1b),
+             launches_graph=graph_launches["pairs_cg_chunked"]),
         dict(_kernel_entry("tuple_gram", "super_tpu_torch/csrc/tuple_gram.cu",
                            "super_tpu/pallas_kernels/gram.py:33",
                            per_it_launches["tuple_gram"], k2_per_it),
-             launches_cli=default_cli["tuple_gram"]),
+             launches_cli=default_cli["tuple_gram"],
+             launches_graph=graph_launches["tuple_gram"]),
         k2_entry,
         dict(_kernel_entry("dense_cg", "super_tpu_torch/csrc/dense_cg.cu",
                            "super_tpu/pallas_kernels/pcg.py:32",
                            solver_launches["dense_cg"], k3),
              launches_hypotheses=option_launches["hypotheses_dense"][
-                 "dense_cg"]),
+                 "dense_cg"],
+             launches_graph=graph_launches["dense_cg"]),
         segsum_entry,
     ]})
     print(card, flush=True)

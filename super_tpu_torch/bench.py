@@ -4,7 +4,7 @@ line.
     python -m super_tpu_torch.bench [--reps 30] [--no_dense] [--cpu]
                                     [--mode step|lm] [--streams 1]
                                     [--association per_frame|per_iteration]
-                                    [--sol]
+                                    [--sol] [--host_loop]
                                     [--height 480 --width 640
                                      --mesh_step_size 30]
 
@@ -27,10 +27,20 @@ nets alone, with seeded random weights, as the root bench's
 flip post-processing), ``depth_raft_hz`` (RAFT-Stereo, 32 GRU iterations)
 and ``seg_hz`` (DeepLabV3+, two classes), on a constant left image of 0.5
 (and a right one of 0.4), one warm-up call and then ``min(reps, 20)``
-calls (``max(4, that // 2)`` for RAFT-Stereo).  The port has no
-device-resident frame loop yet, so each loop runs on the host with one
-synchronisation at the end (``"loop": "host"``).  The overflow counters'
-maxima over the timed frames ride along (``overflow``), so that a run
+calls (``max(4, that // 2)`` for RAFT-Stereo).  The frame loop is the
+root bench's device-resident one (``"loop": "device"``): the step, the
+choice of frame 1 or 2 by a device index that the step flips, and the
+overflow maxima are captured as one CUDA graph (core/compiled.py), the
+live path's nets and preprocessing in it too, and each frame is one
+replay, with one synchronisation at the end of the timed frames and no
+host work between them.  The autograd fit is not captured (core/
+tracker.py:uncaptured_reason), so ``semantic_hz`` runs the host loop:
+the eager step a frame, one synchronisation at the end; ``--host_loop``
+runs that loop everywhere, as the root bench's flag does.  ``loops``
+names each rate's loop.  On the CPU the captured loop runs eagerly on
+its buffers (a check of the loop, not a measurement).  The overflow
+counters' maxima over the timed frames ride along (``overflow``), so that
+a run
 which drops residuals cannot pass for a faster one.  Beside the headline,
 as the root bench has them, the start-up transient: ``cold_start_hz``, a
 second run of ``reps`` frames from the frame-0 state (the first run built
@@ -83,9 +93,19 @@ def _workload(cfg, device, seed: int = 0):
     """(intr, frame_of): the synthetic sequence's three frames, and with a
     ``depth_model`` in ``cfg`` each frame's depth from that net (seeded
     random weights) inferred at each call."""
+    return _workload_parts(cfg, device, seed)[:2]
+
+
+def _workload_parts(cfg, device, seed: int = 0):
+    """(intr, frame_of, inputs2, frame_fn): :func:`_workload`'s, and the
+    device-resident loop's source of frames 1 and 2: ``inputs2`` stacked
+    over the two frames (their FrameData, or with a depth model their
+    colours), ``frame_fn(one, t)`` a frame from one of them at time ``t``
+    (a 0-d tensor), inside the captured loop."""
     import super_tpu_torch  # noqa: F401  (TF32 off)
     from super_tpu_torch.core.preprocess import preprocess_frame
     from super_tpu_torch.data.synthetic import default_intrinsics, generate
+    from super_tpu_torch.utils.tree import stack
 
     h, w = cfg.height, cfg.width
     intr = default_intrinsics(h, w, device=device)
@@ -99,78 +119,158 @@ def _workload(cfg, device, seed: int = 0):
             seg=seq.segs[t] if semantic else None,
             seg_conf=seq.seg_confs[t] if semantic else None, device=device)
             for t in range(3)]
-        return intr, frames.__getitem__
+        return (intr, frames.__getitem__, stack(frames[1:]),
+                lambda frame, t: frame)
     from super_tpu_torch.factory import build_models, predict_frame_inputs
 
     models = build_models(cfg, seed=seed, device=device)
     colors_dev = torch.as_tensor(colors, device=device)
 
-    def frame_of(t):
-        depth = predict_frame_inputs(cfg, models, colors_dev[t])["depth"]
-        return preprocess_frame(cfg, intr, depth, colors_dev[t], float(t),
-                                device=device)
+    def frame_fn(color, t):
+        depth = predict_frame_inputs(cfg, models, color)["depth"]
+        return preprocess_frame(cfg, intr, depth, color, t, device=device)
 
-    return intr, frame_of
+    return (intr, lambda t: frame_fn(colors_dev[t], float(t)),
+            colors_dev[1:], frame_fn)
+
+
+def _overflow(outs, streams):
+    """The overflow counters of a step's outputs (maxima over the
+    streams), int64 (4,)."""
+    d = torch.stack([getattr(outs, n).to(torch.int64) for _, n in OVERFLOW])
+    return d.amax(dim=1) if streams > 1 else d
+
+
+def loop_of(cfg, host_loop: bool = False) -> str:
+    """The frame loop that :func:`measure_step` runs for ``cfg``:
+    ``"device"``, replays of the captured step, where make_jit_step
+    captures the config and ``host_loop`` is not asked; else ``"host"``,
+    the eager step a frame."""
+    from super_tpu_torch.core.tracker import uncaptured_reason
+
+    return "host" if host_loop or uncaptured_reason(cfg) else "device"
 
 
 def measure_step(cfg, reps: int, device, seed: int = 0, cold: bool = False,
-                 streams: int = 1):
+                 streams: int = 1, host_loop: bool = False):
     """(frames/s of the timed pass, all streams', overflow maxima over it).
     With ``cold`` the overflow dict also holds ``cold_start_hz`` and
     ``cold_add_deferred``: a third run, from the frame-0 state again.
     ``streams`` > 1 tracks that many copies of the stream through
-    make_batched_step."""
+    make_batched_step.  The loop is :func:`loop_of`'s: the device-resident
+    loop (the root bench's ``lax.scan``) captures the step, the frame's
+    choice between frames 1 and 2 (a device index the step flips) and the
+    overflow maxima in one graph (core/compiled.py), and each frame is one
+    replay with no host work between frames; the host loop calls the
+    eager step a frame."""
     from super_tpu_torch.core.tracker import init_tracker, track_step
     from super_tpu_torch.parallel.sharded import make_batched_step
 
-    intr, frame_of = _workload(cfg, device, seed)
+    intr, frame_of, inputs2, frame_fn = _workload_parts(cfg, device, seed)
     state0 = init_tracker(cfg, frame_of(0))
     step = functools.partial(track_step, cfg, intr)
     if streams > 1:
+        if cfg.depth_model is not None:
+            raise ValueError("measure_step: streams with a depth net")
         # The stream broadcast B times (views), as the root bench's
         # jnp.broadcast_to: the step writes none of its inputs.
-        step = make_batched_step(cfg, intr)
-        frames = {t: _broadcast(frame_of(t), streams) for t in (1, 2)}
-        frame_of = frames.__getitem__
+        step = make_batched_step(cfg, intr, compiled=False)
+        inputs2 = _broadcast(inputs2, streams, axis=1)
         state0 = _broadcast(state0, streams)
-
-    def run(state):
-        diag = None
-        for i in range(reps):
-            state, outs = step(state, frame_of(1 + i % 2))
-            d = torch.stack([getattr(outs, n).to(torch.int64)
-                             for _, n in OVERFLOW])
-            if streams > 1:
-                d = d.amax(dim=1)
-            diag = d if diag is None else torch.maximum(diag, d)
-        return state, diag
-
-    def timed(state):
-        _sync(device)
-        tic = time.perf_counter()
-        state, diag = run(state)
-        _sync(device)
-        return state, diag, time.perf_counter() - tic
-
-    # track_step makes new tensors and writes none of its input state's
-    # (tests/test_torch_bench.py), so state0 serves the cold run too.
-    state, _ = run(state0)                 # warm-up: builds, converges
-    state, diag, dt = timed(state)
+    if loop_of(cfg, host_loop) == "device":
+        run = _device_loop(step, state0, inputs2, frame_fn, streams, device)
+    else:
+        run = _host_loop(step, state0, frame_of, inputs2, cfg, streams,
+                         device)
+    # Warm-up: builds, converges.  track_step makes new tensors and writes
+    # none of its input state's (tests/test_torch_bench.py), so state0
+    # serves the cold run too.
+    run(reps, True)
+    diag, dt = run(reps, False)
     keys = [k for k, _ in OVERFLOW]
     overflow = dict(zip(keys, diag.tolist()))
     if cold:
-        _, diag_c, dt_c = timed(state0)
+        diag_c, dt_c = run(reps, True)
         overflow["cold_start_hz"] = round(streams * reps / dt_c, 3)
         overflow["cold_add_deferred"] = dict(zip(keys, diag_c.tolist()))[
             "add_deferred"]
     return streams * reps / dt, overflow
 
 
-def _broadcast(tree, b: int):
-    """A state or frame as a stacked batch of ``b`` streams (views)."""
+def _host_loop(step, state0, frame_of, inputs2, cfg, streams, device):
+    """``run(n, from_start)``: n eager steps a frame, from ``state0`` or
+    on from the last run's state; (overflow maxima, seconds between
+    synchronisations)."""
     from super_tpu_torch.utils.tree import tree_map
 
-    return tree_map(lambda x: x.expand((b,) + x.shape), tree)
+    state = state0
+
+    def frame_at(i):
+        if cfg.depth_model is not None:
+            return frame_of(1 + i % 2)
+        return tree_map(lambda a: a[i % 2], inputs2)
+
+    def run(n, from_start):
+        nonlocal state
+        if from_start:
+            state = state0
+        _sync(device)
+        tic = time.perf_counter()
+        diag = None
+        for i in range(n):
+            state, outs = step(state, frame_at(i))
+            d = _overflow(outs, streams)
+            diag = d if diag is None else torch.maximum(diag, d)
+        _sync(device)
+        return diag, time.perf_counter() - tic
+
+    return run
+
+
+def _device_loop(step, state0, inputs2, frame_fn, streams, device):
+    """``run(n, from_start)`` as :func:`_host_loop`'s, on the captured
+    loop: the step, frame 1 or 2 picked by a device index that the step
+    flips, and the overflow maxima, captured at the first run (after its
+    eager warm-up frame) and replayed once a frame."""
+    from super_tpu_torch.core.compiled import CapturedStep
+    from super_tpu_torch.utils.tree import tree_map
+
+    def body(carry, inputs):
+        state, ix, diag = carry
+        one = tree_map(lambda a: a.index_select(0, ix)[0], inputs)
+        state, outs = step(state, frame_fn(one, (ix[0] + 1).float()))
+        return (state, 1 - ix, torch.maximum(diag, _overflow(outs, streams))
+                ), outs.lm_cost
+
+    captured = CapturedStep(body, carry=(0, 0), device=device)
+    start = (state0, torch.zeros((1,), dtype=torch.int64, device=device),
+             torch.zeros((len(OVERFLOW),), dtype=torch.int64, device=device))
+
+    def run(n, from_start):
+        if from_start:
+            captured.load(start, inputs2)
+        for x in captured.buffers[0][1:]:      # frame 1 next, no maxima
+            x.zero_()
+        _sync(device)
+        tic = time.perf_counter()
+        if not captured.captured:
+            captured.run()                     # the warm-up, the capture
+            n -= 1
+        for _ in range(n):
+            captured.replay()
+        _sync(device)
+        return captured.buffers[0][2].clone(), time.perf_counter() - tic
+
+    return run
+
+
+def _broadcast(tree, b: int, axis: int = 0):
+    """A state or frame as a stacked batch of ``b`` streams (views); at
+    ``axis`` 1, a stack of such (the two frames of the loop)."""
+    from super_tpu_torch.utils.tree import tree_map
+
+    return tree_map(lambda x: x.unsqueeze(axis).expand(
+        x.shape[:axis] + (b,) + x.shape[axis:]), tree)
 
 
 def measure_lm(cfg, reps: int, device, seed: int = 0,
@@ -322,20 +422,25 @@ def _device_fields(device) -> dict:
                     text=True, check=True).stdout.strip().splitlines()[0])
 
 
-def _line(metric: str, hz: float, streams: int = 1) -> dict:
-    """The line's leading fields for ``hz``, all streams' rate."""
+def _line(metric: str, hz: float, streams: int = 1,
+          loop: str = "host") -> dict:
+    """The line's leading fields for ``hz``, all streams' rate, measured
+    by ``loop``."""
     per_stream = hz / streams
     return dict(metric=metric, value=round(hz, 3), unit="frames/s/chip",
                 vs_baseline=round(per_stream / 30.0, 4), streams=streams,
-                per_stream_hz=round(per_stream, 3), loop="host")
+                per_stream_hz=round(per_stream, 3), loop=loop)
 
 
 def measure(reps: int = 30, device="cuda", height: int = 480,
             width: int = 640, mesh_step: int = 30, dense: bool = True,
-            association=None, sol: bool = False, streams: int = 1):
+            association=None, sol: bool = False, streams: int = 1,
+            host_loop: bool = False):
     """The JSON line's fields.  With ``association`` only the headline,
     with that association; with ``sol`` also the ``sol`` block;
-    ``streams`` as ``--streams``."""
+    ``streams`` as ``--streams``, ``host_loop`` as ``--host_loop``.
+    ``loop`` is the headline's loop (:func:`loop_of`), ``loops`` each
+    rate's."""
     from super_tpu_torch.config import e2e_depth_workload_config, \
         lm_workload_config, semantic_workload_config
 
@@ -344,8 +449,9 @@ def measure(reps: int = 30, device="cuda", height: int = 480,
         cfg = cfg.replace(solver=dataclasses.replace(
             cfg.solver, association=association))
     hz, overflow = measure_step(cfg, reps, device, cold=True,
-                                streams=streams)
-    out = _line(METRIC, hz, streams)
+                                streams=streams, host_loop=host_loop)
+    out = _line(METRIC, hz, streams, loop_of(cfg, host_loop))
+    loops = {"value": out["loop"]}
     out["cold_start_hz"] = overflow.pop("cold_start_hz")
     out["cold_add_deferred"] = overflow.pop("cold_add_deferred")
     out["overflow"] = overflow
@@ -353,29 +459,39 @@ def measure(reps: int = 30, device="cuda", height: int = 480,
         per_it = cfg.replace(solver=dataclasses.replace(
             cfg.solver, association="per_iteration"))
         hz_it, overflow_it = measure_step(per_it, reps, device,
-                                          streams=streams)
+                                          streams=streams,
+                                          host_loop=host_loop)
         out["per_iteration_hz"] = round(hz_it / streams, 3)
         out["per_iteration_overflow"] = overflow_it
+        loops["per_iteration_hz"] = loop_of(per_it, host_loop)
         if dense:
             # The root bench's max(6, reps // 5) frames, never more than
             # reps.
+            dense_cfg = lm_workload_config(height, width, 16)
             hz_d, overflow_d = measure_step(
-                lm_workload_config(height, width, 16),
-                min(reps, max(6, reps // 5)), device, streams=streams)
+                dense_cfg, min(reps, max(6, reps // 5)), device,
+                streams=streams, host_loop=host_loop)
             out["dense_mesh16_hz"] = round(hz_d / streams, 3)
             out["dense_overflow"] = overflow_d
+            loops["dense_mesh16_hz"] = loop_of(dense_cfg, host_loop)
         # The root bench's max(6, reps // 3) frames, never more than reps.
+        # The autograd fit is not captured: its loop is the host's.
+        sem_cfg = semantic_workload_config(height, width, mesh_step)
         hz_s, overflow_s = measure_step(
-            semantic_workload_config(height, width, mesh_step),
-            min(reps, max(6, reps // 3)), device)
+            sem_cfg, min(reps, max(6, reps // 3)), device,
+            host_loop=host_loop)
         out["semantic_hz"] = round(hz_s, 3)
         out["semantic_overflow"] = overflow_s
+        loops["semantic_hz"] = loop_of(sem_cfg, host_loop)
         out.update(measure_perception(reps, device, height, width))
+        e2e_cfg = e2e_depth_workload_config(height, width, mesh_step)
         hz_e, overflow_e = measure_step(
-            e2e_depth_workload_config(height, width, mesh_step),
-            min(reps, max(6, reps // 3)), device)
+            e2e_cfg, min(reps, max(6, reps // 3)), device,
+            host_loop=host_loop)
         out["e2e_depth_hz"] = round(hz_e, 3)
         out["e2e_depth_overflow"] = overflow_e
+        loops["e2e_depth_hz"] = loop_of(e2e_cfg, host_loop)
+    out["loops"] = loops
     if sol:
         # The root bench's 40 calls a stage.
         out["sol"] = measure_sol(lm_workload_config(height, width,
@@ -402,6 +518,9 @@ def main():
                          "(default: per_frame, and the sweep)")
     ap.add_argument("--sol", action="store_true",
                     help="add the per-stage speed-of-light block")
+    ap.add_argument("--host_loop", action="store_true",
+                    help="time the eager step a frame instead of replays "
+                         "of the captured step (the root bench's flag)")
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (a check of the loop, not a "
                          "measurement of the card)")
@@ -427,7 +546,8 @@ def main():
     else:
         out = measure(args.reps, device, args.height, args.width,
                       args.mesh_step_size, not args.no_dense,
-                      args.association, args.sol, args.streams)
+                      args.association, args.sol, args.streams,
+                      args.host_loop)
     print(json.dumps(out))
 
 

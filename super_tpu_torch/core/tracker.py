@@ -8,10 +8,15 @@ with ``use_derived_gradient``, else from the autograd fit
 (core/optimizer.py:graph_fit).  The step issues no host sync: every counter
 of :class:`StepOutputs` stays a device tensor until the caller reads it.
 Profiler ranges (``step.*``) mark the stages for a traced run.
+
+:func:`make_jit_step` is the JAX package's compiled step: on the card,
+``track_step`` captured once as a CUDA graph and replayed every frame
+(core/compiled.py), for every configuration on the LM path.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Tuple
 
 import torch
@@ -20,6 +25,7 @@ from torch.profiler import record_function
 from super_tpu_torch.config import SuPerConfig
 from super_tpu_torch.core import fusion as fusion_mod
 from super_tpu_torch.core.anchoring import anchor_points, update_graph_knn
+from super_tpu_torch.core.compiled import CapturedStep
 from super_tpu_torch.core.graph import build_graph
 from super_tpu_torch.core.lm import lm_solve
 from super_tpu_torch.core.losses import prepare_lm
@@ -163,3 +169,37 @@ def finish_step(cfg: SuPerConfig, intr: Intrinsics, state: TrackerState,
         free_exhausted=fdiag.free_exhausted, dup_skipped=fdiag.dup_skipped)
     return TrackerState(surfels=surfels, graph=graph, track=track,
                         time=frame.time), outs
+
+
+def uncaptured_reason(cfg: SuPerConfig, models=None, group=None):
+    """Why :func:`make_jit_step` does not capture the step of ``cfg`` (with
+    ``models`` and a process ``group``), or None where it does."""
+    if not cfg.solver.use_derived_gradient:
+        return ("the autograd fit (core/optimizer.py:graph_fit) runs a "
+                "backward pass and torch.optim steps, which no graph of "
+                "this port holds yet; run track_step")
+    if models is not None and cfg.losses.sf_corr:
+        return ("the sf_corr step runs the flow net inside the fit; run "
+                "track_step")
+    if group is not None and torch.distributed.get_world_size(group) > 1:
+        return ("track_step_sharded all-reduces every assembly through "
+                "torch.distributed (gloo: a host round trip), which no "
+                "graph holds; run parallel/sharded.py:track_step_sharded")
+    return None
+
+
+def make_jit_step(cfg: SuPerConfig, models=None, *, group=None):
+    """The compiled step (the JAX package's ``make_jit_step``): a callable
+    ``(intr, state, frame) -> (state, outs)`` that runs ``track_step``
+    with ``cfg``, captured as a CUDA graph at its first call on the card
+    and replayed at every later one (core/compiled.py:CapturedStep; on
+    CPU tensors it runs the step eagerly on its buffers).  Each call
+    returns a state and outputs that no later call overwrites.
+
+    Raises NotImplementedError, naming the reason, for the steps this port
+    does not capture (:func:`uncaptured_reason`): the autograd fit, the
+    sf_corr step with ``models``, and the step sharded over ``group``."""
+    reason = uncaptured_reason(cfg, models, group)
+    if reason is not None:
+        raise NotImplementedError(f"make_jit_step: {reason}")
+    return CapturedStep(functools.partial(track_step, cfg), carry=(1, 0))

@@ -307,6 +307,25 @@ dense_cg_kernel(const float* __restrict__ a, const float* __restrict__ b,
   for (int i = threadIdx.x; i < rows; i += NT) x[row0 + i] = x_own[i];
 }
 
+// A cooperative launch through cudaLaunchKernelEx with the cooperative
+// attribute: the same launch as cudaLaunchCooperativeKernel, in the form
+// that CUDA graph capture records as a cooperative kernel node
+// (core/compiled.py captures the tracking step).
+cudaError_t launch_cooperative(const void* kernel, dim3 grid, dim3 block, void** args,
+                               size_t smem, cudaStream_t stream) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = grid;
+  config.blockDim = block;
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  return cudaLaunchKernelExC(&config, kernel, args);
+}
+
 int num_blocks() {
   static int nb = -1;
   if (nb < 0) {
@@ -365,8 +384,8 @@ int dense_cg_launch(const float* a, const float* b, float* x_out, float* ap_scra
   void* args[] = {(void*)&a,          (void*)&b, (void*)&x_out,      (void*)&ap_scratch,
                   (void*)&stats,      (void*)&n, (void*)&iterations, (void*)&chunks,
                   (void*)&aligned_rows};
-  e = cudaLaunchCooperativeKernel((const void*)dense_cg_kernel, dim3(nb), dim3(NT), args,
-                                  (size_t)l.bytes, static_cast<cudaStream_t>(stream));
+  e = launch_cooperative((const void*)dense_cg_kernel, dim3(nb), dim3(NT), args,
+                         (size_t)l.bytes, static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -572,6 +572,25 @@ __global__ void __launch_bounds__(NT, 1) pairs_cg_kernel(Args a) {
   }
 }
 
+// A cooperative launch through cudaLaunchKernelEx with the cooperative
+// attribute: the same launch as cudaLaunchCooperativeKernel, in the form
+// that CUDA graph capture records as a cooperative kernel node
+// (core/compiled.py captures the tracking step).
+cudaError_t launch_cooperative(const void* kernel, dim3 grid, dim3 block, void** args,
+                               size_t smem, cudaStream_t stream) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = grid;
+  config.blockDim = block;
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  return cudaLaunchKernelExC(&config, kernel, args);
+}
+
 int num_blocks() {
   static int nb = -1;
   if (nb < 0) {
@@ -610,9 +629,9 @@ int launch(const Args& args, void* stream) {
   const int rc = prepare<Band>();
   if (rc != 0) return rc;
   void* params[] = {(void*)&args};
-  cudaError_t e = cudaLaunchCooperativeKernel((const void*)pairs_cg_kernel<Band>,
-                                              dim3(num_blocks()), dim3(NT), params, DYN_BYTES,
-                                              static_cast<cudaStream_t>(stream));
+  cudaError_t e = launch_cooperative((const void*)pairs_cg_kernel<Band>, dim3(num_blocks()),
+                                     dim3(NT), params, DYN_BYTES,
+                                     static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -518,6 +518,25 @@ __global__ void __launch_bounds__(NT, 3) gram_kernel(const Args a, const Src src
   }
 }
 
+// A cooperative launch through cudaLaunchKernelEx with the cooperative
+// attribute: the same launch as cudaLaunchCooperativeKernel, in the form
+// that CUDA graph capture records as a cooperative kernel node
+// (core/compiled.py captures the tracking step).
+cudaError_t launch_cooperative(const void* kernel, dim3 grid, dim3 block, void** args,
+                               size_t smem, cudaStream_t stream) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = grid;
+  config.blockDim = block;
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  return cudaLaunchKernelExC(&config, kernel, args);
+}
+
 // CTAs of the cooperative grid: as many as fit on the SMs together, asked
 // once per process and instance; 0 where the query fails.
 template <class Src>
@@ -540,9 +559,8 @@ int launch(const Args& a, const Src& src, void* stream) {
   if (n <= 0) return (int)cudaErrorCooperativeLaunchTooLarge;
   if (a.G < MIN_G || a.G > NT || a.T <= 0 || a.nb < 0) return (int)cudaErrorInvalidValue;
   void* params[] = {(void*)&a, (void*)&src};
-  const cudaError_t e = cudaLaunchCooperativeKernel((const void*)gram_kernel<Src>, dim3(n),
-                                                    dim3(NT), params, 0,
-                                                    static_cast<cudaStream_t>(stream));
+  const cudaError_t e = launch_cooperative((const void*)gram_kernel<Src>, dim3(n), dim3(NT),
+                                           params, 0, static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -15,6 +15,11 @@ sorts them once a frame and every LM trip reuses the plan.
 :func:`segment_sum` takes the plain version (``index_add_``) for CPU
 tensors only; for CUDA tensors it launches the kernel or raises.
 
+The kernel's scratch (carries and ticket counters) is kept from call to
+call; a captured step (core/compiled.py) keeps its own
+(:func:`scratch_scope`), sized by its warm-up, so that no later call
+replaces memory that its CUDA graph's launches point into.
+
 The autograd path sums through the same kernel.  :func:`segment_gather`
 gathers rows by id, and its backward pass, PyTorch's ``index_add_`` for a
 plain gather, is the segment sum of the output's gradient under a plan
@@ -26,6 +31,8 @@ move with the warp); its backward pass gathers.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import ctypes
 import functools
 from typing import NamedTuple
@@ -100,6 +107,22 @@ def _lib():
 
 
 _scratch = {}
+# The scratch that launches use: the module's, or a captured step's
+# (:func:`scratch_scope`).
+_scratch_store = contextvars.ContextVar("segsum_scratch", default=_scratch)
+
+
+@contextlib.contextmanager
+def scratch_scope(store: dict):
+    """Launches in the block take their scratch from ``store`` ({device:
+    scratch}), which its owner keeps: a captured step
+    (core/compiled.py) holds its own, so that the raw pointers in its
+    graph stay valid whatever other launches later need."""
+    token = _scratch_store.set(store)
+    try:
+        yield store
+    finally:
+        _scratch_store.reset(token)
 
 
 def _kernel_scratch(n_units: int, width: int, dev):
@@ -108,15 +131,21 @@ def _kernel_scratch(n_units: int, width: int, dev):
     counter a unit.  Kept from call to call and grown when short: the
     counters are zeroed when made and every launch leaves those it used at
     0.  Launches share it, so they must run in turn, on one stream, as the
-    port's do."""
+    port's do.  While a CUDA graph is being captured it must not grow: the
+    warm-up before the capture sizes it."""
     carry = 2 * n_units * min(width, SLAB_COLS)
-    have = _scratch.get(dev)
+    store = _scratch_store.get()
+    have = store.get(dev)
     if have is None or have[0].numel() < carry or have[1].numel() < n_units:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("segment_sum: scratch short during a CUDA "
+                               "graph capture (warm up at the captured "
+                               "shapes first)")
         have = (torch.empty((max(carry, 1 << 16),), dtype=torch.float32,
                             device=dev),
                 torch.zeros((max(n_units, 1 << 12),), dtype=torch.int32,
                             device=dev))
-        _scratch[dev] = have
+        store[dev] = have
     return have
 
 

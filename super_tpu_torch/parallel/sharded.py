@@ -6,8 +6,9 @@ super_tpu/parallel/sharded.py).
   frames in, stacked states and outputs out.  Inside, a loop runs
   ``track_step`` on each stream's views ``x[b]``: the step writes in
   place at many sites and its kernels take no batch axis, so it does not
-  vmap (ROADMAP queue 2 K).  Each stream's result is the single-stream
-  step's, bit for bit on one device.
+  vmap (ROADMAP queue 2 K).  On the card the loop is captured as one
+  CUDA graph and a batch is one replay.  Each stream's result is the
+  single-stream step's, bit for bit on one device.
 - :func:`track_step_sharded`: one stream's LM solve split over the surfel
   slots of a process group (:func:`shard_ctx`): each process sums the data
   term over its slots, the sums of every assembly and cost pass are
@@ -29,6 +30,7 @@ import torch.distributed as dist
 from torch.profiler import record_function
 
 from super_tpu_torch.config import SuPerConfig
+from super_tpu_torch.core.compiled import CapturedStep
 from super_tpu_torch.core.lm import lm_solve
 from super_tpu_torch.core.losses import (
     LMContext,
@@ -42,6 +44,7 @@ from super_tpu_torch.core.tracker import (
     finish_step,
     layout_overflow,
     track_step,
+    uncaptured_reason,
 )
 from super_tpu_torch.core.warp import apply_deformation
 from super_tpu_torch.geometry.camera import Intrinsics
@@ -139,11 +142,29 @@ def _batched(step):
     return run
 
 
-def make_batched_step(cfg: SuPerConfig, intr: Intrinsics):
+def make_batched_step(cfg: SuPerConfig, intr: Intrinsics, *,
+                      compiled: bool = True):
     """The single-process multi-stream step: stacked (B, ...)
     ``TrackerState`` and ``FrameData`` to stacked states and
-    ``StepOutputs``."""
-    return _batched(functools.partial(track_step, cfg, intr))
+    ``StepOutputs``.
+
+    ``compiled`` (the default): the B streams' steps captured as one CUDA
+    graph at the first call on the card and replayed by every later call,
+    so that a batch is one launch from the host, the dispatch counterpart
+    of the JAX package's ``jit(vmap)`` (core/compiled.py:CapturedStep; on
+    CPU tensors the loop runs eagerly on its buffers).  The graph holds
+    the loop's order, so each stream stays bitwise its single track; each
+    call returns results that no later call overwrites.  Raises
+    NotImplementedError for the configurations that make_jit_step does
+    not capture (core/tracker.py:uncaptured_reason).  Without
+    ``compiled``, the eager loop."""
+    run = _batched(functools.partial(track_step, cfg, intr))
+    if not compiled:
+        return run
+    reason = uncaptured_reason(cfg)
+    if reason is not None:
+        raise NotImplementedError(f"make_batched_step: {reason}")
+    return CapturedStep(run, carry=(0, 0))
 
 
 def make_multichip_step(cfg: SuPerConfig, intr: Intrinsics, mesh):

@@ -6,7 +6,11 @@ stream's state is independent, so the streams batch (parallel/sharded.py:
 make_batched_step) and split over the 'stream' axis of a mesh
 (make_multichip_step).  This host loop drives the batched step over the
 streams' frames with per-stream tracking evaluation: the multi-sequence
-counterpart of pipeline.py.
+counterpart of pipeline.py.  As there, where make_jit_step captures the
+config the B streams' steps are one CUDA graph on the card, replayed
+once a batch, and each stream's frame is preprocessed by one captured
+``preprocess_frame`` (``loop`` "graph"); the mesh's sharded step and
+the autograd fit run eagerly (``loop`` "eager").
 """
 
 from __future__ import annotations
@@ -24,14 +28,14 @@ from super_tpu_torch.core.track_points import (
     assign_track_points,
     record_track_coords,
 )
-from super_tpu_torch.core.tracker import init_tracker
+from super_tpu_torch.core.tracker import init_tracker, uncaptured_reason
 from super_tpu_torch.geometry.camera import Intrinsics
 from super_tpu_torch.parallel import multihost
 from super_tpu_torch.parallel.sharded import (
     make_batched_step,
     make_multichip_step,
 )
-from super_tpu_torch.pipeline import _chw
+from super_tpu_torch.pipeline import CPU_EAGER, _chw, captured_preprocess
 from super_tpu_torch.utils import evaluation
 from super_tpu_torch.utils.tree import stack, unstack
 
@@ -53,8 +57,20 @@ class MultiStreamPipeline:
         self.device = (multihost.mesh_device(mesh) if mesh is not None
                        else torch.device(device))
         self.intr = Intrinsics(*(x.to(self.device) for x in intr))
-        self._step = (make_batched_step(cfg, self.intr) if mesh is None
-                      else make_multichip_step(cfg, self.intr, mesh))
+        reason = ("the mesh's sharded step" if mesh is not None
+                  else uncaptured_reason(cfg))
+        self._preprocess = None
+        if mesh is not None:
+            self._step = make_multichip_step(cfg, self.intr, mesh)
+        else:
+            self._step = make_batched_step(cfg, self.intr,
+                                           compiled=reason is None)
+        if reason is None:
+            self._preprocess = captured_preprocess(cfg, self.device)
+            if self.device.type != "cuda":
+                reason = CPU_EAGER
+        self.loop = "eager" if reason else "graph"
+        self.loop_reason = reason
         self.states = None
         self.num_streams = 0          # B, all processes' streams
         self.streams = None           # this process's streams of the batch
@@ -76,9 +92,9 @@ class MultiStreamPipeline:
         self.errors = [dict() for _ in ids]
         for t in range(t_total):
             tic = _time.perf_counter()
-            frames = [preprocess_frame(cfg, self.intr, np.asarray(
-                depths[s][t]), _chw(colors[s][t]), float(t), device=dev)
-                for s in ids]
+            frames = [self._frame(np.asarray(depths[s][t]),
+                                  _chw(colors[s][t]), float(t))
+                      for s in ids]
             if self.states is None:
                 self.states = stack([init_tracker(cfg, f) for f in frames])
             else:
@@ -93,6 +109,13 @@ class MultiStreamPipeline:
                 print(f"t={t}: {self.frame_times[-1] * 1e3:.0f} ms "
                       f"({len(ids)} streams)")
         return self.summary()
+
+    def _frame(self, depth, color, time):
+        if self._preprocess is not None:
+            return self._preprocess(self.intr, depth, color, time, None,
+                                    None)
+        return preprocess_frame(self.cfg, self.intr, depth, color, time,
+                                device=self.device)
 
     def _eval_frame(self, t, ids, frames, gt_xy, gt_valid):
         """Bind and read each stream's tracked points; one host read for

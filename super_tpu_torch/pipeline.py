@@ -10,6 +10,17 @@ ground truth is given the tracked points are bound and read
 frame, for the frame's time, as the JAX package's ``block_until_ready``
 does.
 
+Where make_jit_step captures the config (core/tracker.py:
+uncaptured_reason), the loop runs what the JAX package jits as compiled
+steps (core/compiled.py): ``preprocess_frame`` and ``track_step`` each
+captured once as a CUDA graph on the card (at their first call, after an
+eager warm-up) and replayed every later frame, each returning tensors
+that no later replay overwrites.  Otherwise (the autograd fit), or with
+``compiled=False``, each frame runs them eagerly.  ``loop`` says which:
+``"graph"``, or ``"eager"`` with ``loop_reason``; on CPU tensors the
+compiled steps run eagerly on their buffers, and ``loop`` is
+``"eager"`` too.
+
 Given segmentations (``segs``, ``seg_confs``) go into each frame's
 preprocessing, as the semantic configurations need.  Without given depths
 the perception nets of ``models`` (factory.py) infer each frame's depth,
@@ -37,13 +48,19 @@ import numpy as np
 import torch
 
 from super_tpu_torch.config import SuPerConfig
+from super_tpu_torch.core.compiled import CapturedStep
 from super_tpu_torch.core.preprocess import preprocess_frame
 from super_tpu_torch.core.state import TrackerState
 from super_tpu_torch.core.track_points import (
     assign_track_points,
     record_track_coords,
 )
-from super_tpu_torch.core.tracker import init_tracker, track_step
+from super_tpu_torch.core.tracker import (
+    init_tracker,
+    make_jit_step,
+    track_step,
+    uncaptured_reason,
+)
 from super_tpu_torch.geometry.camera import Intrinsics, project_points
 from super_tpu_torch.render.splat import render_zbuffer
 from super_tpu_torch.utils import evaluation
@@ -53,6 +70,19 @@ from super_tpu_torch.utils.viz import TrackingLogger
 
 OVERFLOW_COUNTERS = ("tuple_overflow", "pair_overflow", "proj_overflow",
                      "add_overflow", "free_exhausted", "dup_skipped")
+
+
+CPU_EAGER = "CPU tensors: the compiled steps run eagerly"
+
+
+def captured_preprocess(cfg: SuPerConfig, device):
+    """``preprocess_frame`` captured once and replayed (core/compiled.py),
+    the JAX package's jitted preprocess: called as ``(intr, depth, color,
+    time, seg, seg_conf)``, each frame with the first one's structure."""
+    return CapturedStep(
+        lambda intr, depth, color, time, seg, seg_conf: preprocess_frame(
+            cfg, intr, depth, color, time, seg=seg, seg_conf=seg_conf,
+            device=device), device=device)
 
 
 def _chw(image) -> np.ndarray:
@@ -69,9 +99,15 @@ class SuPerPipeline:
 
     def __init__(self, cfg: SuPerConfig, intr: Intrinsics,
                  logdir: Optional[str] = None,
-                 checkpoint_dir: Optional[str] = None, device="cuda"):
+                 checkpoint_dir: Optional[str] = None, device="cuda",
+                 compiled: bool = True):
         self.cfg = cfg
         self.device = torch.device(device)
+        self.compiled = compiled
+        self._step = None         # make_jit_step's, where it captures cfg
+        self._preprocess = None   # preprocess_frame captured alike
+        self.loop = None          # "graph" or "eager", set by run
+        self.loop_reason = None
         self.intr = Intrinsics(*(x.to(self.device) for x in intr))
         self.state: Optional[TrackerState] = None
         self.track_results: Dict[int, np.ndarray] = {}
@@ -102,6 +138,10 @@ class SuPerPipeline:
         cfg, dev = self.cfg, self.device
         sf_corr_flow = (models is not None and cfg.losses.sf_corr
                         and models.flow_model is not None)
+        self._choose_loop(models)
+        if verbose:
+            print(f"step loop: {self.loop}"
+                  + (f" ({self.loop_reason})" if self.loop_reason else ""))
         for t in range(len(colors)):
             tic = _time.perf_counter()
             color = _chw(colors[t])
@@ -118,11 +158,18 @@ class SuPerPipeline:
                 depth = pred["depth"]
                 if "seg" in pred and seg is None:
                     seg, seg_conf = pred["seg"], pred["seg_conf"]
-            frame = preprocess_frame(cfg, self.intr, depth, color, float(t),
-                                     seg=seg, seg_conf=seg_conf, device=dev)
+            if self._preprocess is not None:
+                frame = self._preprocess(self.intr, depth, color, float(t),
+                                         seg, seg_conf)
+            else:
+                frame = preprocess_frame(cfg, self.intr, depth, color,
+                                         float(t), seg=seg,
+                                         seg_conf=seg_conf, device=dev)
             outs = None
             if self.state is None:
                 self.state = init_tracker(cfg, frame)
+            elif self._step is not None:
+                self.state, outs = self._step(self.intr, self.state, frame)
             elif sf_corr_flow:
                 # The flow's source is the previous frame (the frame's own
                 # colour, zero flow, when the state came from elsewhere).
@@ -166,6 +213,22 @@ class SuPerPipeline:
                                            self.track_results,
                                            np.asarray(gt_xy))
         return self.summary()
+
+    def _choose_loop(self, models):
+        """The compiled steps where make_jit_step captures the config
+        (with ``models``), else the eager ones; ``loop`` says which."""
+        if self.loop is not None:
+            return
+        cfg, dev = self.cfg, self.device
+        reason = ("compiled=False" if not self.compiled
+                  else uncaptured_reason(cfg, models))
+        if reason is None:
+            self._step = make_jit_step(cfg, models)
+            self._preprocess = captured_preprocess(cfg, dev)
+            if dev.type != "cuda":
+                reason = CPU_EAGER
+        self.loop = "eager" if reason else "graph"
+        self.loop_reason = reason
 
     def _render(self, colors):
         sf = self.state.surfels

@@ -115,6 +115,7 @@ def main(argv=None) -> int:
                            models=models, verbose=args.verbose)
         metrics["loader"] = loaded.loader
 
+    metrics["loop"] = pipe.loop
     emit_metrics(metrics, args)
     return 0
 

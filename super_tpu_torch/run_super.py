@@ -9,6 +9,9 @@ either:
 - a SuPer-layout data directory (``--data_dir`` with rgb/ and depth/ and an
   optional tracking-GT .npy), read by data/superv1.py, whose decoder the
   metrics JSON names under ``loader``.
+The metrics JSON names the step's loop under ``loop``: ``"graph"``, the
+compiled step replayed a frame on the card (pipeline.py), or
+``"eager"``.
 
 Examples:
   python -m super_tpu_torch.run_super --synthetic --num_frames 50
@@ -225,6 +228,7 @@ def main(argv=None) -> int:
                 metrics["super_cpp_mean"] = cpp_sum["reproj_mean"]
                 metrics["super_cpp_std"] = cpp_sum["reproj_std"]
 
+    metrics["loop"] = pipe.loop
     emit_metrics(metrics, args)
     return 0
 

@@ -2,7 +2,9 @@
 one JSON line with the root bench's keys (bench.py's last print), the
 per-iteration, dense and semantic entries, the perception nets' rates and
 the live path with monodepth2's depth, the cold start, and no error key;
-``--mode lm``, ``--association`` and ``--sol``, which writes no file; and
+``--mode lm``, ``--association`` and ``--sol``, which writes no file;
+the default loop, replays of the captured step (``"loop": "device"``;
+on the CPU run eagerly on its buffers), and ``--host_loop``; and
 track_step leaving its input state as it was, which the cold start
 relies on."""
 
@@ -39,7 +41,10 @@ def test_bench_prints_the_root_keys(capsys, monkeypatch):
     assert set(out["e2e_depth_overflow"]) == {"tuple", "pair",
                                               "add_deferred", "free"}
     assert out["unit"] == "frames/s/chip" and out["streams"] == 1
-    assert out["loop"] == "host" and out["device"] == "cpu"
+    assert out["loop"] == "device" and out["device"] == "cpu"
+    assert out["loops"] == {"value": "device", "per_iteration_hz": "device",
+                            "dense_mesh16_hz": "device",
+                            "semantic_hz": "host", "e2e_depth_hz": "device"}
     for key in ("value", "per_iteration_hz", "dense_mesh16_hz",
                 "semantic_hz"):
         assert out[key] > 0
@@ -92,15 +97,24 @@ def test_association_and_sol(capsys, monkeypatch):
     assert out["sol"]["floors"]["step"] > 0
 
 
-@pytest.mark.parametrize("workload", ["lm", "semantic"])
-def test_track_step_leaves_its_input_state(workload):
+@pytest.mark.parametrize("workload", ["lm", "semantic", "host_loop"])
+def test_track_step_leaves_its_input_state(workload, capsys, monkeypatch):
     """The cold start tracks from the frame-0 state after the warm-up run
     did: track_step must leave every tensor of its input state as it was
-    (LM and autograd paths, tiny scene)."""
+    (LM and autograd paths, tiny scene).  ``host_loop``: the bench's
+    ``--host_loop`` line, whose cold start runs the eager step from that
+    state again (the headline alone)."""
     from super_tpu_torch.config import lm_workload_config, \
         semantic_workload_config
     from super_tpu_torch.core.tracker import init_tracker, track_step
 
+    if workload == "host_loop":
+        out = _run(capsys, monkeypatch, "--host_loop", "--association",
+                   "per_frame")
+        assert out["loop"] == "host" and out["loops"] == {"value": "host"}
+        assert out["value"] > 0 and out["cold_start_hz"] > 0
+        assert out["cold_add_deferred"] >= 0
+        return
     cfg = (lm_workload_config(48, 64, 8) if workload == "lm"
            else semantic_workload_config(48, 64, 8))
     intr, frame_of = bench._workload(cfg, "cpu")

@@ -17,6 +17,7 @@ from torch_helpers import headline_grid_config, port_config
 from super_tpu import pipeline as jpipeline
 from super_tpu.data.synthetic import default_intrinsics, generate
 from super_tpu_torch import pipeline as tpipeline
+from super_tpu_torch.core import tracker as ttracker
 from super_tpu_torch.data.synthetic import default_intrinsics as tintr
 
 FRAMES = 6
@@ -46,13 +47,15 @@ def runs():
     ref._step = _recording(ref._step, counts_j)
     port = tpipeline.SuPerPipeline(port_config(cfg),
                                    tintr(h, w, device="cpu"), device="cpu")
-    tstep = tpipeline.track_step
-    tpipeline.track_step = _recording(tstep, counts_t)
+    # The pipeline's compiled step (make_jit_step) binds the tracker's
+    # track_step when the run starts, its eager loop the pipeline's name.
+    tstep = ttracker.track_step
+    ttracker.track_step = tpipeline.track_step = _recording(tstep, counts_t)
     try:
         ref_m, port_m = [p.run(seq.depths, seq.colors, gt_xy=seq.gt_xy,
                                gt_valid=seq.gt_valid) for p in (ref, port)]
     finally:
-        tpipeline.track_step = tstep
+        ttracker.track_step = tpipeline.track_step = tstep
     return (cfg, seq, ref_m, port_m, port, np.array(counts_j),
             np.array(counts_t))
 
