@@ -159,7 +159,7 @@ line's launches of K1, ``data_gram`` and the segment sum are the
 ``streams`` run's, each earlier path's beside (``launches_e2e_depth``,
 the sharded and stream-mesh runs' per process).
 
-The compiled step (this slice's main path): ``graph`` runs
+The compiled step (the main path of the last two slices): ``graph`` runs
 ``make_jit_step``, ``track_step`` captured as a CUDA graph and replayed.
 The headline: 2 eager frames, the capture, then 5 replays from that
 state, each frame's state and outputs bitwise the eager step's; 20 more
@@ -175,10 +175,22 @@ step and the option paths): 3 replays from the frame-0 state, bitwise
 the eager frames, their launches the eager step's.  Four streams in one
 graph (``make_batched_step``), each bitwise its eager single track;
 ``SuPerPipeline`` compiled against eager (tracks, errors, final state
-bitwise; both p50s); the bench's headline on the device-resident loop
-and on ``--host_loop``.  The pipelines, the stream batch, the CLIs and
-the bench of the other phases run the compiled steps too.  The kernels
-line's ``launches_graph`` are the ``graph`` phase's replays.
+bitwise; both p50s).  The autograd fit in the graph (this slice's main
+path): the bench's semantic workload as the headline (1 eager frame, the
+capture, 3 replays bitwise, 5 repeats bitwise, tickets 0, the segment
+sum 20 a replay and no other kernel by counter and by trace, ms in
+turns, busy share, peak memory); the render-loss variant (2 replays,
+the segment sum 30 a replay), ``semantic_super_config()`` (SGD, 1
+replay), the sf_corr step with RAFT's flow from the previous frame's
+colour (2 replays) and from the render at every evaluation (1 replay),
+each bitwise its eager frames; 2 semantic streams in one graph; the
+semantic ``SuPerPipeline`` compiled against eager on 6 frames.  Last the
+bench's headline and ``semantic_hz`` on the device-resident loop and on
+``--host_loop``.  The pipelines, the stream batch, the CLIs (their
+metrics' ``loop`` must be ``"graph"``) and the bench of the other phases
+run the compiled steps too.  The kernels line's ``launches_graph`` are
+the ``graph`` phase's replays, the segment sum's semantic replays' in
+``launches_graph_semantic``.
 
 Launch counts are set to 0 just before a path runs and read just after.
 Each phase prints one JSON line; any failure raises and exits non-zero.  The
@@ -3405,6 +3417,7 @@ def _cli_run(name, module, argv, out_json, static, per_trip, frames,
                launches_per_frame={k: v / (frames - 1)
                                    for k, v in launches.items() if v},
                reproj_mean=m["reproj_mean"], frac_valid=m["frac_valid"],
+               loop=m.get("loop"),
                static_error=static, num_eval_frames=m["num_eval_frames"],
                num_surfels=m["num_surfels"], num_nodes=m["num_nodes"],
                super_cpp_mean=m.get("super_cpp_mean"),
@@ -3413,7 +3426,8 @@ def _cli_run(name, module, argv, out_json, static, per_trip, frames,
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     emit(rec)
     ok = (rc == 0 and finite and tracks and launches == want
-          and m["num_eval_frames"] == frames and m["num_surfels"] > 0)
+          and m["num_eval_frames"] == frames and m["num_surfels"] > 0
+          and m.get("loop") == "graph")
     if not ok:
         raise RuntimeError(f"{name}: launches {launches}, want {want}; "
                            f"finite {finite}; tracks {tracks}; {m}")
@@ -3499,6 +3513,10 @@ GRAPH_TURNS = 3                    # timing turns, eager and captured
 GRAPH_PATH_FRAMES = 3              # replayed frames of every other LM path
 GRAPH_STREAM_FRAMES = 2            # replayed batches of the streams check
 GRAPH_PIPELINE_FRAMES = 8          # SuPerPipeline frames, graph and eager
+GRAPH_SEMANTIC_REPEATS = 5         # more replays of one semantic frame
+GRAPH_SEMANTIC_STREAMS = 2         # semantic streams in one graph
+GRAPH_SEMANTIC_PIPELINE_FRAMES = 6
+GRAPH_SEMANTIC_BENCH_FRAMES = 6    # semantic_hz's frames, each loop
 # The kernels of a trace, by a piece of their (demangled) names.
 TRACE_KERNELS = {"pairs_cg": "pairs_cg_kernel<float>",
                  "pairs_cg_chunked": "pairs_cg_kernel<__nv_bfloat16>",
@@ -3568,18 +3586,29 @@ def _ms(fn):
     return (time.perf_counter() - t0) * 1e3
 
 
-def _graph_headline(dev, intr):
-    """The headline through make_jit_step (see :func:`phase_graph`)."""
-    from super_tpu_torch.config import workload_config
+def _step_args(cfg, models, intr, state, frame, prev):
+    """make_jit_step's arguments: ``prev`` (the previous frame's colour)
+    for the sf_corr step with ``models``."""
+    from super_tpu_torch.core.tracker import jit_step_takes_prev
+
+    return (intr, state, frame) + (
+        (prev,) if jit_step_takes_prev(cfg, models) else ())
+
+
+def _graph_full(name, cfg, dev, intr, warm_frames, n, repeats, want):
+    """``name``'s step through make_jit_step (see :func:`phase_graph`):
+    ``warm_frames`` eager frames, the capture, ``n`` replays bitwise the
+    eager frames, ``repeats`` more replays of the first bitwise, the
+    launches a replay ``want`` by counter and by trace, eager and
+    captured ms in turns, busy share, peak memory."""
     from super_tpu_torch.core.tracker import init_tracker, make_jit_step, \
         track_step
 
-    cfg = workload_config("lm")
-    frames = _frames(cfg, intr, GRAPH_WARM + GRAPH_FRAMES + 1, dev)
+    frames = _frames(cfg, intr, warm_frames + n + 1, dev)
     state = init_tracker(cfg, frames[0])
-    for f in frames[1:GRAPH_WARM + 1]:
+    for f in frames[1:warm_frames + 1]:
         state, _ = track_step(cfg, intr, state, f)
-    warm, rest = state, frames[GRAPH_WARM + 1:]
+    warm, rest = state, frames[warm_frames + 1:]
 
     def eager_run():
         st, out = warm, []
@@ -3614,8 +3643,7 @@ def _graph_headline(dev, intr):
     graph_peak = torch.cuda.max_memory_allocated()
     frames_bitwise = [_bits(g, e) for g, e in zip(got, eager)]
     first = got[0]
-    repeats = [_bits(step(intr, warm, rest[0]), first)
-               for _ in range(GRAPH_REPEATS)]
+    again = [_bits(step(intr, warm, rest[0]), first) for _ in range(repeats)]
     tickets = [t for _, t in step._scratch.values()]
     tickets_zero = all(bool((t == 0).all()) for t in tickets)
 
@@ -3633,18 +3661,14 @@ def _graph_headline(dev, intr):
 
     turns = {"eager": [], "graph": []}
     for _ in range(GRAPH_TURNS):
-        for name, one in (("eager", eager_one), ("graph", replay_one)):
-            turns[name].append(float(np.median([_ms(one)
-                                                for _ in rest])))
-    per_frame = {k: v // GRAPH_FRAMES for k, v in launches.items()}
-    want = {k: 0 for k in wrappers}
-    trips = cfg.solver.num_iterations
-    want.update(pairs_cg=trips, data_gram=trips,
-                segment_sum=SEGSUM_PER_TRIP * trips)
+        for kind, one in (("eager", eager_one), ("graph", replay_one)):
+            turns[kind].append(float(np.median([_ms(one) for _ in rest])))
+    want = {**{k: 0 for k in wrappers}, **want}
+    per_frame = {k: v // n for k, v in launches.items()}
     rec = dict(
-        path="lm", warm_frames=GRAPH_WARM, frames=len(rest),
-        frames_bitwise=frames_bitwise, repeats=len(repeats),
-        repeats_bitwise=all(repeats), tickets_zero=tickets_zero,
+        path=name, warm_frames=warm_frames, frames=len(rest),
+        frames_bitwise=frames_bitwise, repeats=len(again),
+        repeats_bitwise=all(again), tickets_zero=tickets_zero,
         launches=launches, eager_launches=eager_launches,
         launches_per_replay=per_frame, launches_trace=by_trace,
         launches_counter_one_replay=by_counter,
@@ -3656,44 +3680,63 @@ def _graph_headline(dev, intr):
         ms_eager=turns["eager"], ms_graph=turns["graph"],
         capture_ms=capture_ms, peak_gb_graph=graph_peak / 1e9,
         peak_gb_eager=eager_peak / 1e9)
-    ok = (all(frames_bitwise) and all(repeats) and tickets_zero
-          and launches == eager_launches and per_frame == want
-          and all(launches[k] == GRAPH_FRAMES * want[k] for k in want)
+    ok = (all(frames_bitwise) and all(again) and tickets_zero
+          and launches == eager_launches
+          and all(launches[k] == n * want[k] for k in want)
           and by_counter == want
           and {k: by_trace[k] for k in want} == want)
     return rec, ok, launches
 
 
-def _graph_path(name, dev, intr):
-    """``name``'s step through make_jit_step, GRAPH_PATH_FRAMES replays
-    from the frame-0 state against as many eager frames."""
+def _graph_headline(dev, intr):
+    """The headline through make_jit_step: K1 and data_gram once an LM
+    trip, the segment sum SEGSUM_PER_TRIP times."""
     from super_tpu_torch.config import workload_config
+
+    cfg = workload_config("lm")
+    trips = cfg.solver.num_iterations
+    return _graph_full("lm", cfg, dev, intr, GRAPH_WARM, GRAPH_FRAMES,
+                       GRAPH_REPEATS,
+                       dict(pairs_cg=trips, data_gram=trips,
+                            segment_sum=SEGSUM_PER_TRIP * trips))
+
+
+def _graph_path(name, cfg, dev, intr, n=GRAPH_PATH_FRAMES, models=None,
+                want=None):
+    """``cfg``'s step through make_jit_step (with ``models``, the sf_corr
+    step's flow net), ``n`` replays from the frame-0 state against as many
+    eager frames: bitwise, the launches the eager step's (and ``want`` a
+    replay where given)."""
     from super_tpu_torch.core.tracker import init_tracker, make_jit_step, \
         track_step
 
-    cfg = workload_config(name)
-    frames = _frames(cfg, intr, GRAPH_PATH_FRAMES + 1, dev)
+    frames = _frames(cfg, intr, n + 1, dev)
     state0 = init_tracker(cfg, frames[0])
     wrappers = _zero_counts()
     st, eager = state0, []
-    for f in frames[1:]:
-        st, o = track_step(cfg, intr, st, f)
+    for t, f in enumerate(frames[1:], 1):
+        st, o = track_step(cfg, intr, st, f, models=models,
+                           prev_color=frames[t - 1].color_image)
         eager.append((st, o))
     eager_launches = _counts(wrappers)
-    rec = dict(path=name, linear_solver=cfg.solver.linear_solver,
-               association=cfg.solver.association,
-               frames=GRAPH_PATH_FRAMES)
+    rec = dict(path=name, frames=n,
+               solver=(cfg.solver.linear_solver
+                       if cfg.solver.use_derived_gradient
+                       else f"autograd {cfg.solver.optimizer}"),
+               association=cfg.solver.association)
     try:
-        step = make_jit_step(cfg)
-        step(intr, state0, frames[1])                # warm-up, capture
+        step = make_jit_step(cfg, models)
+        step(*_step_args(cfg, models, intr, state0, frames[1],
+                         frames[0].color_image))      # warm-up, capture
     except Exception as e:         # recorded: the phase fails below
         rec.update(captured=False, error=f"{type(e).__name__}: {e}"[:600])
         return rec, False, eager_launches
     wrappers = _zero_counts()
     st, got, times = state0, [], []
-    for f in frames[1:]:
+    for t, f in enumerate(frames[1:], 1):
         t0 = time.perf_counter()
-        st, o = step(intr, st, f)
+        st, o = step(*_step_args(cfg, models, intr, st, f,
+                                 frames[t - 1].color_image))
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         got.append((st, o))
@@ -3701,32 +3744,39 @@ def _graph_path(name, dev, intr):
     bitwise = [_bits(g, e) for g, e in zip(got, eager)]
     rec.update(captured=True, frames_bitwise=bitwise, launches=launches,
                eager_launches=eager_launches, ms_graph=times)
-    return rec, all(bitwise) and launches == eager_launches, launches
+    ok = all(bitwise) and launches == eager_launches
+    if want is not None:
+        want = {**{k: 0 for k in wrappers}, **want}
+        rec["launches_want_per_replay"] = want
+        ok &= all(launches[k] == n * want[k] for k in want)
+    return rec, ok, launches
 
 
-def _graph_streams(dev, intr):
-    """STREAMS streams in one graph (make_batched_step): stream s starts
-    from frame s and steps on frames s + 1, s + 2; each bitwise its eager
-    single track, launches those of the single tracks."""
+def _graph_streams(dev, intr, name="lm", streams=STREAMS):
+    """``streams`` streams of ``name``'s workload in one graph
+    (make_batched_step): stream s starts from frame s and steps on frames
+    s + 1, s + 2; each bitwise its eager single track, launches those of
+    the single tracks."""
     from super_tpu_torch.config import workload_config
     from super_tpu_torch.core.tracker import init_tracker, track_step
     from super_tpu_torch.parallel.sharded import make_batched_step
     from super_tpu_torch.utils.tree import stack, unstack
 
-    cfg = workload_config("lm")
+    cfg = workload_config(name)
     n = GRAPH_STREAM_FRAMES
-    frames = _frames(cfg, intr, STREAMS + n, dev)
+    frames = _frames(cfg, intr, streams + n, dev)
     wrappers = _zero_counts()
     singles = []
-    for s in range(STREAMS):
+    for s in range(streams):
         st, out = init_tracker(cfg, frames[s]), []
         for f in frames[s + 1:s + 1 + n]:
             st, o = track_step(cfg, intr, st, f)
             out.append((st, o))
         singles.append(out)
     single_launches = _counts(wrappers)
-    states0 = stack([init_tracker(cfg, frames[s]) for s in range(STREAMS)])
-    batch = [stack([frames[s + 1 + t] for s in range(STREAMS)])
+    single_launches["segment_sum"] -= streams * SEGSUM_AT_INIT
+    states0 = stack([init_tracker(cfg, frames[s]) for s in range(streams)])
+    batch = [stack([frames[s + 1 + t] for s in range(streams)])
              for t in range(n)]
     step = make_batched_step(cfg, intr)
     step(states0, batch[0])                          # warm-up, capture
@@ -3739,39 +3789,40 @@ def _graph_streams(dev, intr):
         times.append((time.perf_counter() - t0) * 1e3)
         got.append((st, o))
     launches = _counts(wrappers)
-    launches_init = {k: v for k, v in single_launches.items()}
-    launches_init["segment_sum"] -= STREAMS * SEGSUM_AT_INIT
     bitwise = [[_bits((unstack(g[0])[s], unstack(g[1])[s]), singles[s][t])
-                for t, g in enumerate(got)] for s in range(STREAMS)]
-    rec = dict(path="streams", streams=STREAMS, frames=n,
+                for t, g in enumerate(got)] for s in range(streams)]
+    rec = dict(path=f"streams_{name}", streams=streams, frames=n,
                bitwise=bitwise, launches=launches,
-               single_launches=launches_init, ms_batch_graph=times,
+               single_launches=single_launches, ms_batch_graph=times,
                captured=step.captured)
-    return rec, (all(all(b) for b in bitwise) and launches == launches_init
-                 and step.captured)
+    return rec, (all(all(b) for b in bitwise)
+                 and launches == single_launches and step.captured)
 
 
-def _graph_pipeline(dev, intr):
-    """SuPerPipeline on the headline with GT, compiled (the graphs) and
+def _graph_pipeline(dev, intr, name="lm", n=GRAPH_PIPELINE_FRAMES):
+    """SuPerPipeline on ``name``'s workload with GT (and the sequence's
+    segmentations on the semantic method), compiled (the graphs) and
     eager: tracks, errors and final state bitwise; p50 of both."""
     from super_tpu_torch.config import workload_config
     from super_tpu_torch.pipeline import SuPerPipeline
 
-    cfg = workload_config("lm")
-    n = GRAPH_PIPELINE_FRAMES
+    cfg = workload_config(name)
     seq = _sequence(cfg, intr, n)
+    segs = {}
+    if cfg.method == "semantic-super":
+        segs = dict(segs=seq.segs[:n], seg_confs=seq.seg_confs[:n])
     runs = {}
     for compiled in (True, False):
         pipe = SuPerPipeline(cfg, intr, device=dev, compiled=compiled)
         m = pipe.run(seq.depths[:n], seq.colors[:n], gt_xy=seq.gt_xy[:n],
-                     gt_valid=seq.gt_valid[:n])
+                     gt_valid=seq.gt_valid[:n], **segs)
         runs[compiled] = (pipe, m)
     (g, gm), (e, em) = runs[True], runs[False]
     tracks = all(np.array_equal(g.track_results[t], e.track_results[t])
                  for t in e.track_results)
     errors = all(np.array_equal(g.errors[t], e.errors[t]) for t in e.errors)
     state = _bits(g.state, e.state)
-    rec = dict(path="pipeline", frames=n, loop_graph=g.loop,
+    rec = dict(path=f"pipeline_{name}", frames=n, loop_graph=g.loop,
                loop_eager=e.loop, tracks_bitwise=tracks,
                errors_bitwise=errors, state_bitwise=state,
                p50_ms_graph=gm["p50_frame_ms"],
@@ -3785,8 +3836,10 @@ def _graph_pipeline(dev, intr):
 
 def _graph_bench(dev):
     """The bench's headline rate on the device-resident loop and on the
-    host loop (6 frames, the cold start beside)."""
+    host loop (6 frames, the cold start beside), and its semantic_hz on
+    both loops (GRAPH_SEMANTIC_BENCH_FRAMES frames)."""
     from super_tpu_torch import bench
+    from super_tpu_torch.config import workload_config
 
     lines = {}
     for host_loop in (False, True):
@@ -3794,14 +3847,65 @@ def _graph_bench(dev):
                             host_loop=host_loop)
         print(json.dumps(out), flush=True)
         lines["host" if host_loop else "device"] = out
+    sem = workload_config("semantic")
+    semantic = {}
+    for host_loop in (False, True):
+        hz, overflow = bench.measure_step(sem, GRAPH_SEMANTIC_BENCH_FRAMES,
+                                          dev, host_loop=host_loop)
+        semantic[bench.loop_of(sem, host_loop)] = dict(hz=hz,
+                                                       overflow=overflow)
     rec = dict(path="bench", device_hz=lines["device"]["value"],
                host_hz=lines["host"]["value"],
                device_cold_hz=lines["device"]["cold_start_hz"],
                host_cold_hz=lines["host"]["cold_start_hz"],
                device_over_host=lines["device"]["value"]
                / lines["host"]["value"],
-               loops=[lines["device"]["loop"], lines["host"]["loop"]])
-    return rec, rec["loops"] == ["device", "host"] and rec["device_hz"] > 0
+               loops=[lines["device"]["loop"], lines["host"]["loop"]],
+               semantic_frames=GRAPH_SEMANTIC_BENCH_FRAMES,
+               semantic_hz=semantic)
+    return rec, (rec["loops"] == ["device", "host"] and rec["device_hz"] > 0
+                 and sorted(semantic) == ["device", "host"]
+                 and all(v["hz"] > 0 for v in semantic.values()))
+
+
+def _graph_semantic(dev, intr):
+    """The semantic part of :func:`phase_graph`: (records, failed)."""
+    from super_tpu_torch.config import workload_config
+    from super_tpu_torch.factory import build_models
+
+    iters = workload_config("semantic").solver.num_iterations
+    fit = SEGSUM_PER_FIT_STEP * iters
+    render = (SEGSUM_PER_FIT_STEP + 1) * iters
+    records, bad = [], []
+
+    def note(rec, ok):
+        emit(dict(phase="graph", **rec, ok=ok))
+        records.append(rec)
+        if not ok:
+            bad.append(rec["path"])
+
+    rec, ok, launches = _graph_full(
+        "semantic", workload_config("semantic"), dev, intr, 1,
+        GRAPH_PATH_FRAMES, GRAPH_SEMANTIC_REPEATS, dict(segment_sum=fit))
+    note(rec, ok)
+    _, (_, render_cfg, _), (_, sgd_cfg, _) = _semantic_runs()
+    note(*_graph_path("semantic_render", render_cfg, dev, intr, n=2,
+                      want=dict(segment_sum=render))[:2])
+    note(*_graph_path("semantic_super_config", sgd_cfg, dev, intr, n=1,
+                      want=dict(segment_sum=render))[:2])
+    cfg = _semantic_models_config()
+    models = build_models(cfg, seed=SEED, device=dev)
+    note(*_graph_path("semantic_sf_corr", cfg, dev, intr, n=2,
+                      models=models, want=dict(segment_sum=fit))[:2])
+    note(*_graph_path("semantic_sf_corr_match_renderimg",
+                      _semantic_models_config(match_renderimg=True), dev,
+                      intr, n=1, models=models,
+                      want=dict(segment_sum=render))[:2])
+    del models
+    note(*_graph_streams(dev, intr, "semantic", GRAPH_SEMANTIC_STREAMS))
+    note(*_graph_pipeline(dev, intr, "semantic",
+                          GRAPH_SEMANTIC_PIPELINE_FRAMES))
+    return records, bad, launches
 
 
 def phase_graph(dev, intr):
@@ -3816,8 +3920,18 @@ def phase_graph(dev, intr):
     a traced replay and a traced eager frame; peak memory.  Then every
     other LM path of config.WORKLOADS, GRAPH_PATH_FRAMES replays each,
     bitwise the eager step, launches the eager step's; STREAMS streams in
-    one graph; SuPerPipeline compiled against eager; the bench's headline
-    on both loops.  Returns the launches of the kernels' replays."""
+    one graph; SuPerPipeline compiled against eager.  Then the autograd
+    fit (:func:`_graph_semantic`): the bench's semantic workload as the
+    headline (one eager frame, GRAPH_PATH_FRAMES replays,
+    GRAPH_SEMANTIC_REPEATS repeats, the segment sum 20 a replay and no
+    other kernel), the render-loss variant (2 replays, 30 a replay), SGD
+    (``semantic_super_config()``, 1 replay), the sf_corr step with RAFT's
+    flow once a frame (2 replays) and from the render at every evaluation
+    (1 replay), GRAPH_SEMANTIC_STREAMS semantic streams in one graph and
+    SuPerPipeline on GRAPH_SEMANTIC_PIPELINE_FRAMES semantic frames,
+    compiled against eager, all bitwise.  Last the bench's headline and
+    semantic_hz on both loops.  Returns the launches of the kernels'
+    replays (``segment_sum_semantic``: the semantic replays')."""
     from super_tpu_torch.config import WORKLOADS, workload_config
 
     t0 = time.perf_counter()
@@ -3831,7 +3945,7 @@ def phase_graph(dev, intr):
     paths = [n for n in WORKLOADS if n != "lm"
              and workload_config(n).solver.use_derived_gradient]
     for name in paths:
-        rec, ok, got = _graph_path(name, dev, intr)
+        rec, ok, got = _graph_path(name, workload_config(name), dev, intr)
         emit(dict(phase="graph", **rec, ok=ok))
         if not ok:
             bad.append(name)
@@ -3845,12 +3959,16 @@ def phase_graph(dev, intr):
         emit(dict(phase="graph", **rec, ok=ok))
         if not ok:
             bad.append(rec["path"])
+    sem_records, sem_bad, sem = _graph_semantic(dev, intr)
+    bad += sem_bad
+    launches["segment_sum_semantic"] = sem["segment_sum"]
     rec, ok = _graph_bench(dev)
     emit(dict(phase="graph", **rec, ok=ok))
     if not ok:
         bad.append("bench")
-    emit(dict(phase="graph_summary", paths=["lm"] + paths, failed=bad,
-              launches_graph=launches,
+    emit(dict(phase="graph_summary",
+              paths=["lm"] + paths + [r["path"] for r in sem_records],
+              failed=bad, launches_graph=launches,
               seconds=time.perf_counter() - t0))
     if bad:
         raise RuntimeError(f"graph phase failed on {bad}")
@@ -3971,6 +4089,8 @@ def main() -> int:
         "segment_sum", "super_tpu_torch/csrc/segment_sum.cu", None,
         stream_launches["segment_sum"], segsum_sem)
     segsum_entry.update(slice_counts("segment_sum"))
+    segsum_entry["launches_graph_semantic"] = graph_launches[
+        "segment_sum_semantic"]
     # launches_cli: the CLI runs' (cli_super_default for tuple_gram and
     # the segment sum, cli_super_pairs for K1 and data_gram, beside the
     # segment sum's cli_semantic count).

@@ -31,13 +31,12 @@ calls (``max(4, that // 2)`` for RAFT-Stereo).  The frame loop is the
 root bench's device-resident one (``"loop": "device"``): the step, the
 choice of frame 1 or 2 by a device index that the step flips, and the
 overflow maxima are captured as one CUDA graph (core/compiled.py), the
-live path's nets and preprocessing in it too, and each frame is one
-replay, with one synchronisation at the end of the timed frames and no
-host work between them.  The autograd fit is not captured (core/
-tracker.py:uncaptured_reason), so ``semantic_hz`` runs the host loop:
-the eager step a frame, one synchronisation at the end; ``--host_loop``
-runs that loop everywhere, as the root bench's flag does.  ``loops``
-names each rate's loop.  On the CPU the captured loop runs eagerly on
+live path's nets and preprocessing in it too, and the semantic path's
+autograd fit (its forward and backward passes and Adam's updates), and
+each frame is one replay, with one synchronisation at the end of the
+timed frames and no host work between them.  ``--host_loop`` runs the
+eager step a frame instead, one synchronisation at the end, everywhere,
+as the root bench's flag does.  ``loops`` names each rate's loop.  On the CPU the captured loop runs eagerly on
 its buffers (a check of the loop, not a measurement).  The overflow
 counters' maxima over the timed frames ride along (``overflow``), so that
 a run
@@ -475,7 +474,6 @@ def measure(reps: int = 30, device="cuda", height: int = 480,
             out["dense_overflow"] = overflow_d
             loops["dense_mesh16_hz"] = loop_of(dense_cfg, host_loop)
         # The root bench's max(6, reps // 3) frames, never more than reps.
-        # The autograd fit is not captured: its loop is the host's.
         sem_cfg = semantic_workload_config(height, width, mesh_step)
         hz_s, overflow_s = measure_step(
             sem_cfg, min(reps, max(6, reps // 3)), device,

@@ -11,8 +11,11 @@ or numbers.  On the card:
    runs ``fn`` on them eagerly on a side stream (the warm-up: kernels
    build, their shared-memory attributes and occupancy are queried, the
    step's cached index tables are made, the segment sum's scratch is
-   sized), then captures ``fn`` once on that stream into a CUDA graph
-   with its own memory pool, and returns the warm-up's outputs;
+   sized, and where ``fn`` runs backward passes, the autograd engine's
+   device thread starts and cuBLAS and cuDNN set up their handles and
+   workspaces on that stream), then captures ``fn`` once on that stream
+   into a CUDA graph with its own memory pool, and returns the warm-up's
+   outputs;
 2. every later call copies the arguments into the same buffers and
    replays the graph: one launch from the host for the whole step.
 
@@ -31,10 +34,11 @@ of the CUDA graph; the tests give a stand-in.)
 A replay runs no Python, so it advances no kernel wrapper's ``launches``
 counter by itself: the capture records each counter's advance and undoes
 it (the capture ran no kernel), and every replay adds it, so that the
-counters go on counting the kernels that the card ran.  The segment
-sum's scratch (kernels/segsum.py) belongs to the step: its warm-up and
-capture use a scratch of their own, which no later call replaces while
-the graph lives.
+counters go on counting the kernels that the card ran, the launches of
+a backward pass on autograd's own thread too.  The segment sum's scratch
+(kernels/segsum.py) belongs to the step: its warm-up and capture use a
+scratch of their own, backward passes included, which no later call
+replaces while the graph lives.
 """
 
 from __future__ import annotations

@@ -2,7 +2,8 @@
 super_tpu/core/optimizer.py).
 
 The deformation ``deform`` (J+1, 7), whose last row is the global rigid
-transform T_g, is fit by SGD (momentum 0.9) or Adam on the autograd faces
+transform T_g, is fit by SGD (momentum 0.9) or Adam, optax's updates
+written as device ops (:func:`fit_update`), on the autograd faces
 of the losses: point-plane ICP with hard or soft semantic weights,
 knn_w-weighted ARAP, the rotation term over every row, triangle-area
 preservation, and the semantic boundary-morph and render terms
@@ -296,17 +297,55 @@ def autograd_total(cfg: SuPerConfig, ctx: AutogradContext,
     return total, parts
 
 
+class FitState(NamedTuple):
+    """The optimizer's state: optax's ``scale_by_adam`` (count, mu, nu) or
+    ``trace`` (the momentum, in ``mu``; ``count`` and ``nu`` unused)."""
+
+    count: torch.Tensor   # () int32, steps taken
+    mu: torch.Tensor
+    nu: torch.Tensor
+
+
+ADAM_B1, ADAM_B2, ADAM_EPS, SGD_MOMENTUM = 0.9, 0.999, 1e-8, 0.9
+
+
+def fit_init(deform) -> FitState:
+    """optax's ``init`` of Adam or SGD for ``deform``, on its device."""
+    return FitState(count=torch.zeros((), dtype=torch.int32,
+                                      device=deform.device),
+                    mu=torch.zeros_like(deform), nu=torch.zeros_like(deform))
+
+
+def fit_update(optimizer: str, lr: float, grad, state: FitState, deform):
+    """One step of ``optax.adam(lr)`` or ``optax.sgd(lr, momentum=0.9)``
+    and ``optax.apply_updates``, op by op in optax's order, as device ops
+    only (no host value, so a CUDA graph holds it): (deform, state)."""
+    if optimizer == "Adam":
+        mu = (1 - ADAM_B1) * grad + ADAM_B1 * state.mu
+        nu = (1 - ADAM_B2) * (grad * grad) + ADAM_B2 * state.nu
+        count = state.count + 1
+        mu_hat = mu / (1 - torch.pow(ADAM_B1, count))
+        nu_hat = nu / (1 - torch.pow(ADAM_B2, count))
+        update = -lr * (mu_hat / (torch.sqrt(nu_hat) + ADAM_EPS))
+        return deform + update, FitState(count, mu, nu)
+    if optimizer == "SGD":
+        mu = grad + SGD_MOMENTUM * state.mu
+        return deform + -lr * mu, state._replace(mu=mu)
+    raise ValueError(f"unknown optimizer {optimizer!r}")
+
+
 def graph_fit(cfg: SuPerConfig, surfels: SurfelState, graph: GraphState,
               frame: FrameData, intr: Intrinsics, models=None,
               prev_color=None):
     """Fit the deformation: (deform (J+1, 7), the loss of the last
     evaluation, made before the last step).
 
-    ``num_iterations`` steps of ``torch.optim.SGD`` (momentum 0.9) or
-    ``torch.optim.Adam`` from the identity, each on the gradient of
-    :func:`autograd_total` with the T_g row's divided by the active node
-    count.  A fixed number of steps and no host read: the step never waits
-    for the card.
+    ``num_iterations`` steps of SGD (momentum 0.9) or Adam from the
+    identity (:func:`fit_update`, optax's updates), each on the gradient
+    of :func:`autograd_total` with the T_g row's divided by the active
+    node count.  A fixed number of steps and no host read: the step never
+    waits for the card, and a CUDA graph holds it whole (core/tracker.py:
+    make_jit_step).
 
     With ``sf_corr`` and a flow net in ``models`` (factory.Models), the
     flow is inferred once from ``prev_color`` (3, H, W) to the frame's
@@ -336,22 +375,17 @@ def graph_fit(cfg: SuPerConfig, surfels: SurfelState, graph: GraphState,
     deform = torch.zeros((graph.capacity + 1, 7), dtype=torch.float32,
                          device=dev)
     deform[:, 0] = 1.0
-    deform.requires_grad_(True)
-    if sol.optimizer == "Adam":
-        opt = torch.optim.Adam([deform], lr=sol.learning_rate)
-    elif sol.optimizer == "SGD":
-        opt = torch.optim.SGD([deform], lr=sol.learning_rate, momentum=0.9)
-    else:
-        raise ValueError(f"unknown optimizer {sol.optimizer!r}")
+    state = fit_init(deform)
     loss = deform.new_zeros(())
     for _ in range(sol.num_iterations):
-        opt.zero_grad(set_to_none=True)
+        deform.requires_grad_(True)
         with record_function("graph_fit.loss"):
             loss = autograd_total(cfg, ctx, graph, deform, intr,
                                   flow_fn=flow_fn)[0]
         with record_function("graph_fit.backward"):
-            loss.backward()
-        with record_function("graph_fit.step"):
-            deform.grad[-1].div_(ctx.num_active_nodes)
-            opt.step()
-    return deform.detach(), loss.detach()
+            grad, = torch.autograd.grad(loss, deform)
+        with record_function("graph_fit.step"), torch.no_grad():
+            grad[-1] = grad[-1] / ctx.num_active_nodes
+            deform, state = fit_update(sol.optimizer, sol.learning_rate,
+                                       grad, state, deform.detach())
+    return deform, loss.detach()

@@ -11,7 +11,7 @@ Profiler ranges (``step.*``) mark the stages for a traced run.
 
 :func:`make_jit_step` is the JAX package's compiled step: on the card,
 ``track_step`` captured once as a CUDA graph and replayed every frame
-(core/compiled.py), for every configuration on the LM path.
+(core/compiled.py), for every configuration but the sharded step.
 """
 
 from __future__ import annotations
@@ -173,19 +173,19 @@ def finish_step(cfg: SuPerConfig, intr: Intrinsics, state: TrackerState,
 
 def uncaptured_reason(cfg: SuPerConfig, models=None, group=None):
     """Why :func:`make_jit_step` does not capture the step of ``cfg`` (with
-    ``models`` and a process ``group``), or None where it does."""
-    if not cfg.solver.use_derived_gradient:
-        return ("the autograd fit (core/optimizer.py:graph_fit) runs a "
-                "backward pass and torch.optim steps, which no graph of "
-                "this port holds yet; run track_step")
-    if models is not None and cfg.losses.sf_corr:
-        return ("the sf_corr step runs the flow net inside the fit; run "
-                "track_step")
+    ``models`` and a process ``group``), or None where it does: it
+    captures every step but one sharded over a group of processes."""
     if group is not None and torch.distributed.get_world_size(group) > 1:
         return ("track_step_sharded all-reduces every assembly through "
                 "torch.distributed (gloo: a host round trip), which no "
                 "graph holds; run parallel/sharded.py:track_step_sharded")
     return None
+
+
+def jit_step_takes_prev(cfg: SuPerConfig, models=None) -> bool:
+    """Whether :func:`make_jit_step`'s step is called as ``(intr, state,
+    frame, prev_color)``: the sf_corr step with ``models``."""
+    return models is not None and cfg.losses.sf_corr
 
 
 def make_jit_step(cfg: SuPerConfig, models=None, *, group=None):
@@ -194,12 +194,23 @@ def make_jit_step(cfg: SuPerConfig, models=None, *, group=None):
     with ``cfg``, captured as a CUDA graph at its first call on the card
     and replayed at every later one (core/compiled.py:CapturedStep; on
     CPU tensors it runs the step eagerly on its buffers).  Each call
-    returns a state and outputs that no later call overwrites.
+    returns a state and outputs that no later call overwrites.  The graph
+    holds the whole step, the autograd fit's forward and backward passes
+    and its optimizer updates too.
 
-    Raises NotImplementedError, naming the reason, for the steps this port
-    does not capture (:func:`uncaptured_reason`): the autograd fit, the
-    sf_corr step with ``models``, and the step sharded over ``group``."""
+    With ``sf_corr`` and ``models`` the callable is ``(intr, state, frame,
+    prev_color)``, the flow net's inference inside the graph (its weights
+    stay where they are): at the first frame, pass the frame's own colour
+    (zero flow, one capture).
+
+    Raises NotImplementedError, naming the reason, for the step sharded
+    over ``group`` (:func:`uncaptured_reason`)."""
     reason = uncaptured_reason(cfg, models, group)
     if reason is not None:
         raise NotImplementedError(f"make_jit_step: {reason}")
-    return CapturedStep(functools.partial(track_step, cfg), carry=(1, 0))
+    if not jit_step_takes_prev(cfg, models):
+        return CapturedStep(functools.partial(track_step, cfg), carry=(1, 0))
+    return CapturedStep(
+        lambda intr, state, frame, prev: track_step(
+            cfg, intr, state, frame, models=models, prev_color=prev),
+        carry=(1, 0))

@@ -23,7 +23,10 @@ replaces memory that its CUDA graph's launches point into.
 The autograd path sums through the same kernel.  :func:`segment_gather`
 gathers rows by id, and its backward pass, PyTorch's ``index_add_`` for a
 plain gather, is the segment sum of the output's gradient under a plan
-made once a frame (tuple nodes, ED neighbours, triangle corners).
+made once a frame (tuple nodes, ED neighbours, triangle corners), with the
+scratch that was current at the forward pass: autograd runs a card's
+backward pass on a thread of its own, outside the caller's
+:func:`scratch_scope`.
 :func:`segment_reduce` is the segment sum as a differentiable op (the soft
 splat's per-pixel sums, planned at every evaluation because the pixels
 move with the warp); its backward pass gathers.
@@ -222,11 +225,15 @@ class _SegmentGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, plan):
         ctx.plan = plan
+        ctx.store = _scratch_store.get()
         return x.index_select(0, plan.ids)
 
     @staticmethod
     def backward(ctx, grad):
-        return segment_sum(grad, ctx.plan), None
+        # Autograd may run this on its own device thread, where the
+        # forward's scratch_scope is not current.
+        with scratch_scope(ctx.store):
+            return segment_sum(grad, ctx.plan), None
 
 
 class _SegmentReduce(torch.autograd.Function):

@@ -44,7 +44,6 @@ from super_tpu_torch.core.tracker import (
     finish_step,
     layout_overflow,
     track_step,
-    uncaptured_reason,
 )
 from super_tpu_torch.core.warp import apply_deformation
 from super_tpu_torch.geometry.camera import Intrinsics
@@ -152,19 +151,13 @@ def make_batched_step(cfg: SuPerConfig, intr: Intrinsics, *,
     graph at the first call on the card and replayed by every later call,
     so that a batch is one launch from the host, the dispatch counterpart
     of the JAX package's ``jit(vmap)`` (core/compiled.py:CapturedStep; on
-    CPU tensors the loop runs eagerly on its buffers).  The graph holds
-    the loop's order, so each stream stays bitwise its single track; each
-    call returns results that no later call overwrites.  Raises
-    NotImplementedError for the configurations that make_jit_step does
-    not capture (core/tracker.py:uncaptured_reason).  Without
-    ``compiled``, the eager loop."""
+    CPU tensors the loop runs eagerly on its buffers), for the LM solve
+    and the autograd fit alike.  The graph holds the loop's order, so
+    each stream stays bitwise its single track; each call returns results
+    that no later call overwrites.  Without ``compiled``, the eager
+    loop."""
     run = _batched(functools.partial(track_step, cfg, intr))
-    if not compiled:
-        return run
-    reason = uncaptured_reason(cfg)
-    if reason is not None:
-        raise NotImplementedError(f"make_batched_step: {reason}")
-    return CapturedStep(run, carry=(0, 0))
+    return CapturedStep(run, carry=(0, 0)) if compiled else run
 
 
 def make_multichip_step(cfg: SuPerConfig, intr: Intrinsics, mesh):

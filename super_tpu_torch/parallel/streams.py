@@ -7,10 +7,10 @@ make_batched_step) and split over the 'stream' axis of a mesh
 (make_multichip_step).  This host loop drives the batched step over the
 streams' frames with per-stream tracking evaluation: the multi-sequence
 counterpart of pipeline.py.  As there, where make_jit_step captures the
-config the B streams' steps are one CUDA graph on the card, replayed
-once a batch, and each stream's frame is preprocessed by one captured
-``preprocess_frame`` (``loop`` "graph"); the mesh's sharded step and
-the autograd fit run eagerly (``loop`` "eager").
+config (the LM solve and the autograd fit alike) the B streams' steps
+are one CUDA graph on the card, replayed once a batch, and each stream's
+frame is preprocessed by one captured ``preprocess_frame`` (``loop``
+"graph"); the mesh's sharded step runs eagerly (``loop`` "eager").
 """
 
 from __future__ import annotations

@@ -10,13 +10,13 @@ ground truth is given the tracked points are bound and read
 frame, for the frame's time, as the JAX package's ``block_until_ready``
 does.
 
-Where make_jit_step captures the config (core/tracker.py:
-uncaptured_reason), the loop runs what the JAX package jits as compiled
-steps (core/compiled.py): ``preprocess_frame`` and ``track_step`` each
-captured once as a CUDA graph on the card (at their first call, after an
-eager warm-up) and replayed every later frame, each returning tensors
-that no later replay overwrites.  Otherwise (the autograd fit), or with
-``compiled=False``, each frame runs them eagerly.  ``loop`` says which:
+The loop runs what the JAX package jits as compiled steps (core/
+compiled.py): ``preprocess_frame`` and ``track_step`` (make_jit_step's,
+the LM solve or the autograd fit, with the sf_corr flow net's inference
+where the config has it) each captured once as a CUDA graph on the card
+(at their first call, after an eager warm-up) and replayed every later
+frame, each returning tensors that no later replay overwrites.  With
+``compiled=False`` each frame runs them eagerly.  ``loop`` says which:
 ``"graph"``, or ``"eager"`` with ``loop_reason``; on CPU tensors the
 compiled steps run eagerly on their buffers, and ``loop`` is
 ``"eager"`` too.
@@ -57,6 +57,7 @@ from super_tpu_torch.core.track_points import (
 )
 from super_tpu_torch.core.tracker import (
     init_tracker,
+    jit_step_takes_prev,
     make_jit_step,
     track_step,
     uncaptured_reason,
@@ -136,8 +137,6 @@ class SuPerPipeline:
             raise ValueError("run needs depths, or models to infer them "
                              "(factory.build_models)")
         cfg, dev = self.cfg, self.device
-        sf_corr_flow = (models is not None and cfg.losses.sf_corr
-                        and models.flow_model is not None)
         self._choose_loop(models)
         if verbose:
             print(f"step loop: {self.loop}"
@@ -168,19 +167,21 @@ class SuPerPipeline:
             outs = None
             if self.state is None:
                 self.state = init_tracker(cfg, frame)
-            elif self._step is not None:
-                self.state, outs = self._step(self.intr, self.state, frame)
-            elif sf_corr_flow:
+            else:
                 # The flow's source is the previous frame (the frame's own
                 # colour, zero flow, when the state came from elsewhere).
                 prev = (frame.color_image if self._prev_color is None
                         else self._prev_color)
-                self.state, outs = track_step(cfg, self.intr, self.state,
-                                              frame, models=models,
-                                              prev_color=prev)
-            else:
-                self.state, outs = track_step(cfg, self.intr, self.state,
-                                              frame)
+                if self._step is None:
+                    self.state, outs = track_step(
+                        cfg, self.intr, self.state, frame, models=models,
+                        prev_color=prev)
+                elif jit_step_takes_prev(cfg, models):
+                    self.state, outs = self._step(self.intr, self.state,
+                                                  frame, prev)
+                else:
+                    self.state, outs = self._step(self.intr, self.state,
+                                                  frame)
             self._prev_color = frame.color_image
             if gt_xy is not None:
                 self._eval_frame(t, frame, gt_xy[t], gt_valid[t])

@@ -255,30 +255,30 @@ def test_bn_morph_misclassified(ctxs):
 
 
 def test_optimizer_steps():
-    """torch.optim.Adam and SGD(momentum 0.9) against optax.adam and
-    optax.sgd(momentum=0.9), two steps on seeded gradients: the same
-    update up to an f32 rounding of the parameters (two ULPs at 1.0)."""
+    """The fit's Adam and SGD(momentum 0.9) updates (core/optimizer.py:
+    fit_update) against optax.adam and optax.sgd(momentum=0.9), two steps
+    on seeded gradients: the same update up to an f32 rounding of the
+    parameters (two ULPs at 1.0)."""
     rng = np.random.default_rng(2)
     p0 = _deform(40, seed=3, scale=0.1)
     grads = [rng.normal(size=p0.shape).astype(np.float32) * s
              for s in (1.0, 1e-3)]
     for g in grads:
         g[5] = 0.0                          # an inactive node's row
-    for name, opt, make in (
-            ("Adam", optax.adam(2e-4),
-             lambda p: torch.optim.Adam([p], lr=2e-4)),
-            ("SGD", optax.sgd(5e-5, momentum=0.9),
-             lambda p: torch.optim.SGD([p], lr=5e-5, momentum=0.9))):
+    for name, opt, lr in (("Adam", optax.adam(2e-4), 2e-4),
+                          ("SGD", optax.sgd(5e-5, momentum=0.9), 5e-5)):
         pj, state = jnp.asarray(p0), opt.init(jnp.asarray(p0))
-        pt = torch.tensor(p0, requires_grad=True)
-        topt_ = make(pt)
+        pt = torch.tensor(p0)
+        tstate = topt.fit_init(pt)
         for g in grads:
             upd, state = opt.update(jnp.asarray(g), state, pj)
             pj = optax.apply_updates(pj, upd)
-            pt.grad = torch.tensor(g)
-            topt_.step()
-            close(pj, pt.detach(), atol=2.4e-7, name=name)
+            pt, tstate = topt.fit_update(name, lr, torch.tensor(g), tstate,
+                                         pt)
+            close(pj, pt, atol=2.4e-7, name=name)
         close(pj[5], p0[5], atol=0, name=f"{name} zero-gradient row")
+        if name == "Adam":
+            assert int(tstate.count) == int(state[0].count) == len(grads)
 
 
 def _jax_fit(c, jit):

@@ -44,7 +44,7 @@ def test_bench_prints_the_root_keys(capsys, monkeypatch):
     assert out["loop"] == "device" and out["device"] == "cpu"
     assert out["loops"] == {"value": "device", "per_iteration_hz": "device",
                             "dense_mesh16_hz": "device",
-                            "semantic_hz": "host", "e2e_depth_hz": "device"}
+                            "semantic_hz": "device", "e2e_depth_hz": "device"}
     for key in ("value", "per_iteration_hz", "dense_mesh16_hz",
                 "semantic_hz"):
         assert out[key] > 0

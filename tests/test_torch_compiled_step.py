@@ -14,8 +14,9 @@ core/tracker.py:make_jit_step) on the CPU, where it has no graph.
   (no later call writes them).
 - The launch counters: a stand-in step that counts launches as the
   kernel wrappers do, captured and replayed: each run counts once.
-- make_jit_step's refusals (the autograd fit, sf_corr with nets, a
-  sharded group), the stream batch for B = 2 bitwise two single tracks,
+- make_jit_step's one refusal (a sharded group; the autograd fit and
+  sf_corr with nets are captured), the stream batch for B = 2 bitwise two
+  single tracks,
   and SuPerPipeline's compiled loop bitwise its eager one.
 
 On the card the same objects capture CUDA graphs; chip_smoke.py's
@@ -31,8 +32,8 @@ import pytest
 import torch
 from torch.utils import _pytree as pytree
 
-from torch_helpers import check_track, port_config, port_intr, \
-    slice_config
+from torch_helpers import StandInGraph, check_track, port_config, \
+    port_intr, same_tensor_bits as same_bits, slice_config
 
 from super_tpu.core.preprocess import preprocess_frame as jax_preprocess
 from super_tpu.core.tracker import init_tracker as jax_init
@@ -42,47 +43,13 @@ from super_tpu_torch.convert import to_numpy
 from super_tpu_torch.core import compiled
 from super_tpu_torch.core.preprocess import preprocess_frame
 from super_tpu_torch.core.tracker import init_tracker, make_jit_step, \
-    track_step
+    track_step, uncaptured_reason
 from super_tpu_torch.kernels import pcg, segsum
 from super_tpu_torch.parallel.sharded import make_batched_step
 from super_tpu_torch.pipeline import SuPerPipeline, captured_preprocess
 from super_tpu_torch.utils.tree import stack, unstack
 
 FRAMES = 4               # tracked frames after frame 0
-
-
-class StandInGraph:
-    """A CUDA graph's behaviour without a card: the capture runs ``body``
-    once (the Python of a CUDA capture runs once, launching nothing);
-    a replay runs it again with every launch counter left as it was and
-    writes its results into the captured outputs in place."""
-
-    def __init__(self, body, stream):
-        self.body = body
-        self.outputs = body()
-        self.replays = 0
-
-    def replay(self):
-        counts = compiled.launch_counts()
-        new = self.body()
-        for k, c in zip(compiled.counted_kernels(), counts):
-            k.launches = c
-        for old, fresh in zip(pytree.tree_leaves(self.outputs),
-                              pytree.tree_leaves(new)):
-            if old.data_ptr() != fresh.data_ptr():
-                old.copy_(fresh)
-        self.replays += 1
-
-
-def same_bits(a, b):
-    la, lb = pytree.tree_leaves(a), pytree.tree_leaves(b)
-    assert len(la) == len(lb)
-    for x, y in zip(la, lb):
-        assert x.dtype == y.dtype and x.shape == y.shape
-        if x.is_floating_point():
-            x = x.view(torch.int32 if x.element_size() == 4 else torch.int16)
-            y = y.view(x.dtype)
-        assert torch.equal(x, y)
 
 
 @pytest.fixture(scope="module")
@@ -216,22 +183,28 @@ def test_captured_step_refuses_another_structure(scene):
 
 def test_make_jit_step_raises_for_what_it_does_not_capture(scene,
                                                            monkeypatch):
+    """Only the step sharded over a process group is refused; the autograd
+    fit and the sf_corr step with nets are captured (tests/
+    test_torch_compiled_fit.py runs them)."""
     pcfg = scene[3]
     autograd = pcfg.replace(solver=dataclasses.replace(
         pcfg.solver, use_derived_gradient=False))
-    with pytest.raises(NotImplementedError, match="autograd fit"):
-        make_jit_step(autograd)
-    corr = pcfg.replace(losses=dataclasses.replace(pcfg.losses,
-                                                   sf_corr=True))
-    with pytest.raises(NotImplementedError, match="sf_corr"):
-        make_jit_step(corr, models=object())
+    assert uncaptured_reason(autograd) is None
+    assert isinstance(make_jit_step(autograd), compiled.CapturedStep)
+    corr = autograd.replace(losses=dataclasses.replace(autograd.losses,
+                                                       sf_corr=True))
+    assert uncaptured_reason(corr, models=object()) is None
+    assert isinstance(make_jit_step(corr, models=object()),
+                      compiled.CapturedStep)
     group = object()
     monkeypatch.setattr(torch.distributed, "get_world_size",
                         lambda g=None: 2 if g is group else 1)
     with pytest.raises(NotImplementedError, match="track_step_sharded"):
         make_jit_step(pcfg, group=group)
-    with pytest.raises(NotImplementedError, match="autograd fit"):
-        make_batched_step(autograd, scene[4])
+    with pytest.raises(NotImplementedError, match="track_step_sharded"):
+        make_jit_step(autograd, group=group)
+    assert isinstance(make_batched_step(autograd, scene[4]),
+                      compiled.CapturedStep)
 
 
 def test_batched_step_is_two_single_tracks(scene):
