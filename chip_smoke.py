@@ -157,7 +157,24 @@ single-stream track run in this process.  ``bench_streams`` prints the
 bench's headline line with ``--streams 4`` and with 1.  The kernels
 line's launches of K1, ``data_gram`` and the segment sum are the
 ``streams`` run's, each earlier path's beside (``launches_e2e_depth``,
-the sharded and stream-mesh runs' per process).
+the captured sharded and stream-mesh replays' per process).
+
+The mesh's step in the graph (the main path of this slice), in the same
+two processes: ``sharded`` runs the same frames through
+``make_multichip_step`` on ('stream' 1, 'shard' 2), captured as graphs
+cut at the all-reduces (core/compiled.py:CutGraph): each replay bitwise
+the eager ``track_step_sharded`` frame on its rank, the ranks bitwise
+each other, the launches a replay (K1 10, ``data_gram`` 10, the segment
+sum 40) by counter with the counts zeroed just before the replays, 11
+all-reduces and 12 graph launches a frame by the cut graph's counts, no
+sync flagged in a replay by CUDA's sync debug mode (the syncs of the
+eager frames by the line that made them), eager and captured ms a frame
+in turns, the first call's ms, peak memory, the all-reduce alone on its
+pinned host buffer, and one classic-schedule frame (20 cuts) bitwise
+its eager frame.  ``stream_mesh``'s ('stream' 2, 'shard' 1) step is one
+CUDA graph: its replays' launches one process's, and
+``MultiStreamPipeline(mesh=)`` reports ``loop`` "graph", bitwise the
+step.
 
 The compiled step (the main path of the last two slices): ``graph`` runs
 ``make_jit_step``, ``track_step`` captured as a CUDA graph and replayed.
@@ -2635,7 +2652,6 @@ def _stderr_lines():
 
 def _child_sharded(rank, cfg, intr, seq, dev):
     import hashlib
-    import warnings
 
     from super_tpu_torch.convert import to_numpy
     from super_tpu_torch.core import losses
@@ -2696,8 +2712,8 @@ def _child_sharded(rank, cfg, intr, seq, dev):
         beta_sha=hashlib.sha256(sh.beta.cpu().numpy().tobytes()).hexdigest())
     # SHARD_FRAMES tracked frames, launches counted, every all-reduce
     # counted, and the syncs that CUDA's sync debug mode "warn" flags: in
-    # this thread as Python warnings, in gloo's threads (its copies to and
-    # from host memory) as lines on the process's standard error.
+    # this thread as Python warnings (by the file and line that called the
+    # op), in other threads as lines on the process's standard error.
     calls = [0]
     reduce = losses.all_reduce_sum
 
@@ -2706,7 +2722,9 @@ def _child_sharded(rank, cfg, intr, seq, dev):
         return reduce(tensors, grp)
 
     wrappers = _launch_counts()
-    state, outs, times, syncs = state0, [], [], []
+    state, outs, times, syncs, eager = state0, [], [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     losses.all_reduce_sum = counted
     for wr in wrappers.values():
         wr.launches = 0
@@ -2714,29 +2732,24 @@ def _child_sharded(rank, cfg, intr, seq, dev):
         for f in frames[1:]:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            with warnings.catch_warnings(record=True) as caught, \
-                    _stderr_lines() as lines:
-                warnings.simplefilter("always")
-                torch.cuda.set_sync_debug_mode("warn")
-                try:
-                    state, o = track_step_sharded(cfg, intr, 2, state, f,
-                                                  group=group)
-                finally:
-                    torch.cuda.set_sync_debug_mode("default")
+            with _syncs_flagged() as flagged:
+                state, o = track_step_sharded(cfg, intr, 2, state, f,
+                                              group=group)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
-            syncs.append(dict(
-                this_thread=sum("synchroniz" in str(x.message)
-                                for x in caught),
-                other_threads=sum("synchronizing CUDA operation" in ln
-                                  for ln in lines)))
+            syncs.append(flagged)
             outs.append(to_numpy(o))
+            eager.append((state, o))
     finally:
         losses.all_reduce_sum = reduce
     out.update(track=outs, track_ms=times, syncs=syncs,
                all_reduces=calls[0],
                launches={k: wr.launches for k, wr in wrappers.items()},
-               track_digests=_digests(state))
+               track_digests=_digests(state),
+               peak_gb_eager=torch.cuda.max_memory_allocated() / 1e9)
+    out["captured"] = _sharded_captured(cfg, intr, mesh, group, state0,
+                                        frames[1:], eager)
+    del eager
     # One trip's all-reduce alone: the pair-form jtj, jtr and cost packed
     # into one buffer, between CUDA events and on the host clock.
     p = cfg.solver.assembly_pair_cap
@@ -2759,34 +2772,193 @@ def _child_sharded(rank, cfg, intr, seq, dev):
     return out
 
 
-def _child_stream_mesh(cfg, intr, seq, dev):
+@contextlib.contextmanager
+def _syncs_flagged():
+    """The syncs that CUDA's sync debug mode "warn" flags in the block, in
+    the dict it yields: ``this_thread`` a warning each, counted in
+    ``sites`` by the innermost line of this checkout on the stack that
+    made the op (beside the line of the library that made it),
+    ``other_threads`` the warnings that other threads print on the
+    standard error."""
+    import traceback
+    import warnings
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    sites = {}
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        # (Not the mode's own one-time "prototype feature" notice.)
+        if "synchronizing CUDA operation" not in str(message):
+            return
+        mine = [f for f in traceback.extract_stack()[:-1]
+                if f.filename.startswith(root)]
+        site = (f"{os.path.relpath(mine[-1].filename, root)}:"
+                f"{mine[-1].lineno}" if mine else "?") + \
+            f" ({os.path.basename(filename)}:{lineno})"
+        sites[site] = sites.get(site, 0) + 1
+
+    flagged = {}
+    with warnings.catch_warnings(), _stderr_lines() as lines:
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield flagged
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    flagged.update(this_thread=sum(sites.values()), sites=sites)
+    flagged["other_threads"] = sum("synchronizing CUDA operation" in ln
+                                   for ln in lines)
+
+
+def _sharded_captured(cfg, intr, mesh, group, state0, frames, eager):
+    """make_multichip_step on the ('stream' 1, 'shard' 2) mesh: graphs cut
+    at the all-reduces (core/compiled.py:CutGraph).  The first call (the
+    eager warm-up and the capture) on ``frames[0]`` from ``state0``, a
+    replay a frame after it, and ``frames[0]`` from ``state0`` again as a
+    replay: each frame bitwise the eager track_step_sharded frame of
+    ``eager`` ((state, outputs) each).  The replays' launches by counter,
+    graph launches and all-reduces by the cut graph's counts, syncs
+    flagged; eager and captured ms in turns; capture ms, peak memory; one
+    classic-schedule frame the same way."""
     from super_tpu_torch.convert import to_numpy
+    from super_tpu_torch.core import losses
+    from super_tpu_torch.core.compiled import CutGraph
+    from super_tpu_torch.parallel.sharded import make_multichip_step, \
+        track_step_sharded
+    from super_tpu_torch.utils.tree import stack, unstack
+
+    def call(step, state, frame):
+        states, outs = step(stack([state]), stack([frame]))
+        return unstack(states)[0], unstack(outs)[0]
+
+    step = make_multichip_step(cfg, intr, mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    got = [call(step, state0, frames[0])]
+    torch.cuda.synchronize()
+    capture_ms = (time.perf_counter() - t0) * 1e3
+    graph = step.graph
+    wrappers = _zero_counts()
+    launches0, reduces0 = graph.launches, graph.reduces
+    syncs = []
+    for f in frames[1:] + frames[:1]:
+        state = got[-1][0] if len(got) < len(frames) else state0
+        with _syncs_flagged() as flagged:
+            got.append(call(step, state, f))
+        torch.cuda.synchronize()
+        syncs.append(flagged)
+    replays = len(frames)
+    launches = _counts(wrappers)
+    graph_launches = (graph.launches - launches0) / replays
+    all_reduces = (graph.reduces - reduces0) / replays
+    peak = torch.cuda.max_memory_allocated()
+    want = eager + eager[:1]
+    bitwise = [_bits(g, w) for g, w in zip(got, want)]
+
+    # The all-reduce alone as a replay runs it: the pair-form sums in a
+    # pinned host buffer, through gloo.
+    p = cfg.solver.assembly_pair_cap
+    host = torch.ones(49 * p + 7 * cfg.capacity.node_capacity + 1,
+                      pin_memory=True)
+    for _ in range(3):
+        losses.reduce_host(host, group)
+    t0 = time.perf_counter()
+    for _ in range(20):
+        losses.reduce_host(host, group)
+    reduce_ms = (time.perf_counter() - t0) * 1e3 / 20
+
+    def eager_one():
+        track_step_sharded(cfg, intr, 2, state0, frames[0], group=group)
+
+    def graph_one():
+        call(step, state0, frames[0])
+
+    turns = {"eager": [], "graph": []}
+    for _ in range(GRAPH_TURNS):
+        for kind, one in (("eager", eager_one), ("graph", graph_one)):
+            turns[kind].append(_ms(one))
+    # A replay and an eager frame traced: this process's kernels (the
+    # other process's share the card meanwhile).
+    trace = {}
+    for kind, one in (("graph", graph_one), ("eager", eager_one)):
+        by, n, device_ms, window_ms = _trace_counts(one)
+        trace[kind] = dict(launches=by, kernels=n, device_ms=device_ms,
+                           window_ms=window_ms, busy=device_ms / window_ms)
+
+    # One classic-schedule frame: the eager step, then the step's first
+    # call and a replay on the same frame.
+    classic = cfg.replace(solver=dataclasses.replace(
+        cfg.solver, lm_schedule="classic"))
+    want_c = track_step_sharded(classic, intr, 2, state0, frames[0],
+                                group=group)
+    cstep = make_multichip_step(classic, intr, mesh)
+    first_c = call(cstep, state0, frames[0])
+    r0 = cstep.graph.reduces
+    replay_c = call(cstep, state0, frames[0])
+    torch.cuda.synchronize()
+    return dict(
+        cut_graph=isinstance(graph, CutGraph), segments=graph.segments,
+        frames_bitwise=bitwise, replays=replays, launches=launches,
+        launches_per_replay={k: v / replays for k, v in launches.items()},
+        graph_launches_per_replay=graph_launches,
+        all_reduces_per_replay=all_reduces,
+        syncs=syncs, capture_ms=capture_ms, peak_gb=peak / 1e9,
+        ms_eager=turns["eager"], ms_graph=turns["graph"],
+        host_reduce_ms=reduce_ms, trace=trace,
+        digests=_digests(got[-2][0]),
+        outs=[to_numpy(o) for _, o in got],
+        classic=dict(cut_graph=isinstance(cstep.graph, CutGraph),
+                     segments=cstep.graph.segments,
+                     all_reduces_per_replay=cstep.graph.reduces - r0,
+                     first_bitwise=_bits(first_c, want_c),
+                     replay_bitwise=_bits(replay_c, want_c)))
+
+
+def _child_stream_mesh(cfg, intr, seq, dev):
+    """This rank's stream on mesh ('stream' 2, 'shard' 1) through
+    make_multichip_step (one CUDA graph: the first call the warm-up and
+    the capture, a replay a frame after it; the replays' launches
+    counted), then both streams through MultiStreamPipeline(mesh=)."""
+    from super_tpu_torch.convert import to_numpy
+    from super_tpu_torch.core.compiled import CudaGraph
     from super_tpu_torch.core.tracker import init_tracker
     from super_tpu_torch.parallel import multihost
     from super_tpu_torch.parallel.mesh import make_mesh
     from super_tpu_torch.parallel.sharded import make_multichip_step
+    from super_tpu_torch.parallel.streams import MultiStreamPipeline
     from super_tpu_torch.utils.tree import stack, tree_map
 
     mesh = make_mesh(device_type=dev.type)     # ('stream' 2, 'shard' 1)
     s = range(2)[multihost.stream_block(mesh, 2)][0]
-    frames = _window_frames(cfg, intr, seq, slice(
-        s * MESH_FRAMES, (s + 1) * MESH_FRAMES), dev)
+    wins = [slice(w * MESH_FRAMES, (w + 1) * MESH_FRAMES) for w in range(2)]
+    frames = _window_frames(cfg, intr, seq, wins[s], dev)
     # Host-local streams placed on the device, as a multi-host run does.
     states = multihost.shard_stream_batch(mesh, to_numpy(stack(
         [init_tracker(cfg, frames[0])])))
     step = make_multichip_step(cfg, intr, mesh)
-    wrappers = _launch_counts()
-    for wr in wrappers.values():
-        wr.launches = 0
     outs = []
-    for f in frames[1:]:
+    for t, f in enumerate(frames[1:]):
+        if t == 1:          # the replays' launches
+            wrappers = _zero_counts()
         fb = multihost.shard_stream_batch(mesh, to_numpy(stack([f])))
         states, o = step(states, fb)
         outs.append(to_numpy(tree_map(lambda x: x[0], o)))
+    launches = _counts(wrappers)
+    digests = _digests(tree_map(lambda x: x[0], states))
+    pipe = MultiStreamPipeline(cfg, intr, mesh=mesh, device=dev)
+    m = pipe.run(np.stack([seq.depths[w] for w in wins]),
+                 np.stack([seq.colors[w] for w in wins]))
     return dict(mesh=mesh.mesh.tolist(),
                 coordinate=list(mesh.get_coordinate()), stream=s, outs=outs,
-                launches={k: wr.launches for k, wr in wrappers.items()},
-                digests=_digests(tree_map(lambda x: x[0], states)))
+                launches=launches, replays=len(frames) - 2,
+                one_graph=step.captured and isinstance(step.graph,
+                                                       CudaGraph),
+                digests=digests, pipe_loop=pipe.loop,
+                pipe_digests=_digests(tree_map(lambda x: x[0],
+                                               pipe.states)),
+                pipe_batch_ms=m["p50_batch_ms"])
 
 
 def phase_parallel(dev, cfg, intr):
@@ -2797,9 +2969,12 @@ def phase_parallel(dev, cfg, intr):
     assembly and K2's partial Grams against one process, frame 2's LM
     solve, SHARD_FRAMES frames of track_step_sharded against this
     process's single track, both ranks bitwise equal, each rank's launches
-    one process's.  ``stream_mesh``: mesh ('stream' 2, 'shard' 1), each
-    rank's stream through shard_stream_batch and make_multichip_step,
-    bitwise the single-stream track run here."""
+    one process's; then make_multichip_step captured on the same frames
+    (:func:`_sharded_captured`).  ``stream_mesh``: mesh ('stream' 2,
+    'shard' 1), each rank's stream through shard_stream_batch and
+    make_multichip_step (one CUDA graph), bitwise the single-stream track
+    run here, and MultiStreamPipeline(mesh=) on both streams.  Returns
+    the captured replays' launches of each."""
     import pickle
 
     import torch.multiprocessing as tmp
@@ -2851,7 +3026,41 @@ def phase_parallel(dev, cfg, intr):
     ranks_bitwise = dict(
         lm_beta=a["lm"]["beta_sha"] == b["lm"]["beta_sha"],
         track_outputs=_np_same(a["track"], b["track"]),
-        track_state=a["track_digests"] == b["track_digests"])
+        track_state=a["track_digests"] == b["track_digests"],
+        captured_outputs=_np_same(a["captured"]["outs"],
+                                  b["captured"]["outs"]),
+        captured_state=a["captured"]["digests"] == b["captured"][
+            "digests"])
+    # The captured step: every frame bitwise the eager one on its rank,
+    # one trip's kernels a replay, 11 all-reduces and 12 graphs a frame,
+    # no sync flagged in the step's thread during a replay but the event
+    # waits between its graphs (core/compiled.py).
+    per_frame = {k: v / SHARD_FRAMES for k, v in want.items()}
+    cuts = cfg.solver.num_iterations + 1
+    captured = [r_["sharded"]["captured"] for r_ in res]
+    classic_cuts = 2 * cfg.solver.num_iterations
+
+    def quiet(syncs):
+        return all(n == 0 or site.startswith(
+            "super_tpu_torch/core/compiled.py:")
+            for x in syncs for site, n in x["sites"].items())
+
+    captured_ok = dict(
+        cut_graph=all(c["cut_graph"] and c["segments"] == cuts + 1
+                      for c in captured),
+        frames_bitwise=all(all(c["frames_bitwise"]) for c in captured),
+        launches_per_replay=all(c["launches_per_replay"] == per_frame
+                                for c in captured),
+        all_reduces_per_frame=all(c["all_reduces_per_replay"] == cuts
+                                  for c in captured),
+        graph_launches_per_frame=all(
+            c["graph_launches_per_replay"] == cuts + 1 for c in captured),
+        replay_syncs=all(quiet(c["syncs"]) for c in captured),
+        classic=all(c["classic"]["cut_graph"]
+                    and c["classic"]["segments"] == classic_cuts + 1
+                    and c["classic"]["all_reduces_per_replay"]
+                    == classic_cuts and c["classic"]["first_bitwise"]
+                    and c["classic"]["replay_bitwise"] for c in captured))
     checks = dict(
         mesh=[a["mesh"], b["mesh"]] == [[[0, 1]]] * 2
         and [a["coordinate"], b["coordinate"]] == [[0, 0], [0, 1]],
@@ -2864,7 +3073,8 @@ def phase_parallel(dev, cfg, intr):
         track=(all(c < 0.15 for c in cost_rels)
                and all(abs(x - y) <= 0.01 * y for x, y in surf)),
         launches=a["launches"] == want and b["launches"] == want,
-        ranks_bitwise=all(ranks_bitwise.values()))
+        ranks_bitwise=all(ranks_bitwise.values()),
+        captured=all(captured_ok.values()))
     emit(dict(phase="sharded", processes=2, backend="gloo",
               slots=2 * k2["slots"], slots_per_shard=k2["slots"],
               blocks_per_shard=k2["blocks"], assembly=assembly, k2_slice=k2,
@@ -2875,10 +3085,19 @@ def phase_parallel(dev, cfg, intr):
               all_reduces_per_frame=a["all_reduces"] / SHARD_FRAMES,
               syncs_flagged=[a["syncs"], b["syncs"]],
               all_reduce=[a["all_reduce"], b["all_reduce"]],
+              peak_gb_eager=[a["peak_gb_eager"], b["peak_gb_eager"]],
+              captured={k: [c[k] for c in captured] for k in (
+                  "segments", "frames_bitwise", "replays",
+                  "launches_per_replay", "all_reduces_per_replay",
+                  "graph_launches_per_replay", "syncs", "capture_ms",
+                  "peak_gb", "ms_eager", "ms_graph", "host_reduce_ms",
+                  "trace", "classic")},
+              captured_checks=captured_ok,
               ranks_bitwise=ranks_bitwise, checks=checks,
               spawn_seconds=spawn_s))
     if not all(checks.values()):
-        raise RuntimeError(f"sharded check failed: {checks}")
+        raise RuntimeError(f"sharded check failed: {checks} "
+                           f"{captured_ok}")
 
     # stream_mesh
     same = {}
@@ -2891,7 +3110,13 @@ def phase_parallel(dev, cfg, intr):
             stream=s == r, outputs=_np_same(out["outs"], outs),
             state=out["digests"] == _digests(state))
     sm = [r_["stream_mesh"] for r_ in res]
-    trips = cfg.solver.num_iterations * (MESH_FRAMES - 1)
+    for r, out in enumerate(sm):
+        same[f"rank{r}"].update(one_graph=out["one_graph"],
+                                pipeline_loop=out["pipe_loop"] == "graph",
+                                pipeline=out["pipe_digests"]
+                                == out["digests"])
+    # The replays' launches: one process's trips.
+    trips = cfg.solver.num_iterations * sm[0]["replays"]
     want = {k: 0 for k in sm[0]["launches"]}
     want.update(pairs_cg=trips, data_gram=trips,
                 segment_sum=SEGSUM_PER_TRIP * trips)
@@ -2901,10 +3126,12 @@ def phase_parallel(dev, cfg, intr):
           and all(x["launches"] == want for x in sm))
     emit(dict(phase="stream_mesh", processes=2, mesh=sm[0]["mesh"],
               bitwise=same, launches=[x["launches"] for x in sm],
+              replays=sm[0]["replays"],
+              pipe_batch_ms=[x["pipe_batch_ms"] for x in sm],
               streams_differ=sm[0]["digests"] != sm[1]["digests"]))
     if not ok:
         raise RuntimeError(f"stream_mesh check failed: {same}")
-    return a["launches"], sm[0]["launches"]
+    return captured[0]["launches"], sm[0]["launches"]
 
 
 def phase_bench_streams(dev):
@@ -3852,7 +4079,7 @@ def _graph_bench(dev):
     for host_loop in (False, True):
         hz, overflow = bench.measure_step(sem, GRAPH_SEMANTIC_BENCH_FRAMES,
                                           dev, host_loop=host_loop)
-        semantic[bench.loop_of(sem, host_loop)] = dict(hz=hz,
+        semantic[bench.loop_of(host_loop)] = dict(hz=hz,
                                                        overflow=overflow)
     rec = dict(path="bench", device_hz=lines["device"]["value"],
                host_hz=lines["host"]["value"],
@@ -4044,8 +4271,9 @@ def main() -> int:
     ssim_cfg, ssim_frames, ssim_launches = phase_ssim_conf(dev, intr)
     observe_launches = phase_observe(dev, intr)
     phase_sol(dev)
-    # This slice's main path: the stream batch; then the sharded step and
-    # the stream mesh in two processes, and the bench's --streams.
+    # The stream batch; then the sharded step and the stream mesh in two
+    # processes, eager and (this slice's main path) captured by
+    # make_multichip_step; and the bench's --streams.
     stream_launches = phase_streams(dev, cfg, intr)
     sharded_launches, mesh_launches = phase_parallel(dev, cfg, intr)
     phase_bench_streams(dev)
@@ -4076,8 +4304,8 @@ def main() -> int:
 
     # The launches of K1, data_gram and the segment sum are those of this
     # slice's main path, the stream batch (STREAMS streams); each earlier
-    # path's count rides beside, and the sharded step's and the stream
-    # mesh's per process.  The segment sum's time is that of the semantic
+    # path's count rides beside, and the captured sharded step's and
+    # stream mesh's replays per process.  The segment sum's time is that of the semantic
     # fit's anchor rows, with the headline's pair rows beside.
     def slice_counts(name):
         return dict(launches_graph=graph_launches[name],

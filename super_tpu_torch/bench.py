@@ -140,14 +140,11 @@ def _overflow(outs, streams):
     return d.amax(dim=1) if streams > 1 else d
 
 
-def loop_of(cfg, host_loop: bool = False) -> str:
-    """The frame loop that :func:`measure_step` runs for ``cfg``:
-    ``"device"``, replays of the captured step, where make_jit_step
-    captures the config and ``host_loop`` is not asked; else ``"host"``,
-    the eager step a frame."""
-    from super_tpu_torch.core.tracker import uncaptured_reason
-
-    return "host" if host_loop or uncaptured_reason(cfg) else "device"
+def loop_of(host_loop: bool = False) -> str:
+    """The frame loop that :func:`measure_step` runs: ``"device"``,
+    replays of the captured step, unless ``host_loop`` asks for
+    ``"host"``, the eager step a frame."""
+    return "host" if host_loop else "device"
 
 
 def measure_step(cfg, reps: int, device, seed: int = 0, cold: bool = False,
@@ -176,7 +173,7 @@ def measure_step(cfg, reps: int, device, seed: int = 0, cold: bool = False,
         step = make_batched_step(cfg, intr, compiled=False)
         inputs2 = _broadcast(inputs2, streams, axis=1)
         state0 = _broadcast(state0, streams)
-    if loop_of(cfg, host_loop) == "device":
+    if not host_loop:
         run = _device_loop(step, state0, inputs2, frame_fn, streams, device)
     else:
         run = _host_loop(step, state0, frame_of, inputs2, cfg, streams,
@@ -449,8 +446,9 @@ def measure(reps: int = 30, device="cuda", height: int = 480,
             cfg.solver, association=association))
     hz, overflow = measure_step(cfg, reps, device, cold=True,
                                 streams=streams, host_loop=host_loop)
-    out = _line(METRIC, hz, streams, loop_of(cfg, host_loop))
-    loops = {"value": out["loop"]}
+    loop = loop_of(host_loop)
+    out = _line(METRIC, hz, streams, loop)
+    loops = {"value": loop}
     out["cold_start_hz"] = overflow.pop("cold_start_hz")
     out["cold_add_deferred"] = overflow.pop("cold_add_deferred")
     out["overflow"] = overflow
@@ -462,7 +460,7 @@ def measure(reps: int = 30, device="cuda", height: int = 480,
                                           host_loop=host_loop)
         out["per_iteration_hz"] = round(hz_it / streams, 3)
         out["per_iteration_overflow"] = overflow_it
-        loops["per_iteration_hz"] = loop_of(per_it, host_loop)
+        loops["per_iteration_hz"] = loop
         if dense:
             # The root bench's max(6, reps // 5) frames, never more than
             # reps.
@@ -472,7 +470,7 @@ def measure(reps: int = 30, device="cuda", height: int = 480,
                 streams=streams, host_loop=host_loop)
             out["dense_mesh16_hz"] = round(hz_d / streams, 3)
             out["dense_overflow"] = overflow_d
-            loops["dense_mesh16_hz"] = loop_of(dense_cfg, host_loop)
+            loops["dense_mesh16_hz"] = loop
         # The root bench's max(6, reps // 3) frames, never more than reps.
         sem_cfg = semantic_workload_config(height, width, mesh_step)
         hz_s, overflow_s = measure_step(
@@ -480,7 +478,7 @@ def measure(reps: int = 30, device="cuda", height: int = 480,
             host_loop=host_loop)
         out["semantic_hz"] = round(hz_s, 3)
         out["semantic_overflow"] = overflow_s
-        loops["semantic_hz"] = loop_of(sem_cfg, host_loop)
+        loops["semantic_hz"] = loop
         out.update(measure_perception(reps, device, height, width))
         e2e_cfg = e2e_depth_workload_config(height, width, mesh_step)
         hz_e, overflow_e = measure_step(
@@ -488,7 +486,7 @@ def measure(reps: int = 30, device="cuda", height: int = 480,
             host_loop=host_loop)
         out["e2e_depth_hz"] = round(hz_e, 3)
         out["e2e_depth_overflow"] = overflow_e
-        loops["e2e_depth_hz"] = loop_of(e2e_cfg, host_loop)
+        loops["e2e_depth_hz"] = loop
     out["loops"] = loops
     if sol:
         # The root bench's 40 calls a stage.

@@ -29,7 +29,10 @@ A capture that fails raises; nothing falls back to the eager step.  On
 CPU tensors there is no graph: the same object runs ``fn`` eagerly on its
 buffers every call, the plain counterpart, chosen by the tensors' device
 as the kernel wrappers choose.  (A ``graph`` class may be given instead
-of the CUDA graph; the tests give a stand-in.)
+of the CUDA graph; the tests give a stand-in.)  A step sharded over a
+process group takes :class:`CutGraph` on the card
+(parallel/sharded.py:make_multichip_step): its all-reduces run on the
+host between graphs, one graph for each stretch between two of them.
 
 A replay runs no Python, so it advances no kernel wrapper's ``launches``
 counter by itself: the capture records each counter's advance and undoes
@@ -38,18 +41,21 @@ counters go on counting the kernels that the card ran, the launches of
 a backward pass on autograd's own thread too.  The segment sum's scratch
 (kernels/segsum.py) belongs to the step: its warm-up and capture use a
 scratch of their own, backward passes included, which no later call
-replaces while the graph lives.
+replaces while the graph lives; so do the pinned host buffers of its
+all-reduces (core/losses.py:host_buffers).
 """
 
 from __future__ import annotations
 
 import contextlib
+import gc
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
+from super_tpu_torch.core import losses
 from super_tpu_torch.kernels import gram, pcg, segsum
 
 
@@ -80,6 +86,62 @@ class CudaGraph:
 
     def replay(self):
         self._graph.replay()
+
+
+class CutGraph:
+    """``body()`` captured on ``stream`` as one CUDA graph for each stretch
+    between two all-reduces (core/losses.py:all_reduce_sum), the graphs in
+    one memory pool: at an all-reduce the stretch's graph ends with the
+    copy of the packed sums into their pinned host buffer, and the next
+    graph begins with the copy back.  A replay replays the graphs in their
+    capture order on the current stream and, after each but the last,
+    waits for its end (an event) and all-reduces its host buffer
+    (core/losses.py:reduce_host): the step sharded over a process group,
+    whose collective runs on the host, as graphs.  ``launches`` and
+    ``reduces`` count the graphs replayed and the all-reduces run."""
+
+    def __init__(self, body, stream):
+        self._graphs, self._cuts = [], []
+        self._pool = torch.cuda.graph_pool_handle()
+        self._ended = torch.cuda.Event()
+        self.launches = self.reduces = 0
+        # As torch.cuda.graph: no work in flight, no stale cached blocks.
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+        with torch.cuda.stream(stream), losses.cut_at_reduces(self._cut):
+            self._begin()
+            try:
+                self.outputs = body()
+            finally:
+                self._graphs[-1].capture_end()
+
+    def _begin(self):
+        # thread_local: only this thread's calls can break the capture (the
+        # process group's threads make none on the card).
+        graph = torch.cuda.CUDAGraph()
+        graph.capture_begin(pool=self._pool,
+                            capture_error_mode="thread_local")
+        self._graphs.append(graph)
+
+    def _cut(self, host, group):
+        self._graphs[-1].capture_end()
+        self._cuts.append((host, group))
+        self._begin()
+
+    @property
+    def segments(self) -> int:
+        return len(self._graphs)
+
+    def replay(self):
+        for i, graph in enumerate(self._graphs):
+            graph.replay()
+            self.launches += 1
+            if i < len(self._cuts):
+                self._ended.record()
+                self._ended.synchronize()
+                losses.reduce_host(*self._cuts[i])
+                self.reduces += 1
 
 
 def _leaf_tensor(x, device):
@@ -118,10 +180,17 @@ class CapturedStep:
         self._delta = None         # counter advance of one run
         self._outputs = None       # the last run's (the graph's) outputs
         self._scratch = {}         # the segment sum's scratch of this step
+        self._host = {}            # the all-reduces' pinned host buffers
 
     @property
     def captured(self) -> bool:
         return self._graph is not None
+
+    @property
+    def graph(self):
+        """The capture (None before it): a CudaGraph, a CutGraph or the
+        given class."""
+        return self._graph
 
     @property
     def buffers(self):
@@ -199,7 +268,8 @@ class CapturedStep:
             torch._foreach_copy_([d for d, _ in pairs], [s for _, s in pairs])
 
     def _body(self):
-        with segsum.scratch_scope(self._scratch):
+        with segsum.scratch_scope(self._scratch), \
+                losses.host_buffers(self._host):
             out = self.fn(*self._args)
             self._write_back(out)
         return out

@@ -30,6 +30,8 @@ reach the host.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import functools
 from typing import NamedTuple, Optional
 
@@ -673,15 +675,86 @@ def group_size(group) -> int:
     return 1 if group is None else dist.get_world_size(group)
 
 
+# The host side of all_reduce_sum on the card: the pinned buffers that a
+# step keeps ({(dtype, numel): tensor}; host_buffers), and the hook that a
+# cut graph puts where the all-reduce runs (cut_at_reduces).
+_host_store = contextvars.ContextVar("all_reduce_host", default=None)
+_reduce_cut = contextvars.ContextVar("all_reduce_cut", default=None)
+
+
+@contextlib.contextmanager
+def host_buffers(store: dict):
+    """all_reduce_sum in the block stages its sums through the pinned
+    buffers of ``store``, which its owner keeps: a captured step
+    (core/compiled.py) holds its own, so that the copies in its graphs
+    keep pointing at live memory."""
+    token = _host_store.set(store)
+    try:
+        yield store
+    finally:
+        _host_store.reset(token)
+
+
+@contextlib.contextmanager
+def cut_at_reduces(cut):
+    """all_reduce_sum in the block hands each host buffer to ``cut(host,
+    group)`` in place of reducing it (core/compiled.py:CutGraph ends a
+    graph there, and reduces the buffer between that graph's replay and
+    the next's)."""
+    token = _reduce_cut.set(cut)
+    try:
+        yield cut
+    finally:
+        _reduce_cut.reset(token)
+
+
+def reduce_host(host, group):
+    """The all-reduce itself: ``host``, a CPU tensor, summed in place over
+    ``group``'s processes."""
+    dist.all_reduce(host, op=dist.ReduceOp.SUM, group=group)
+
+
+def _pinned(flat):
+    """A pinned host buffer of ``flat``'s dtype and size: the current
+    store's (made there at its first use), else a new one."""
+    store = _host_store.get()
+    key = (flat.dtype, flat.numel())
+    host = None if store is None else store.get(key)
+    if host is None:
+        host = torch.empty(flat.numel(), dtype=flat.dtype, pin_memory=True)
+        if store is not None:
+            store[key] = host
+    return host
+
+
 def all_reduce_sum(tensors, group):
     """Each tensor summed over ``group``'s processes, in place of the JAX
     package's ``psum``: the tensors of one dtype packed into one flat
-    buffer, one all-reduce a dtype.  Every process gets the same sums."""
+    buffer, one all-reduce a dtype.  Every process gets the same sums.
+
+    The all-reduce runs on a CPU tensor: on the card the packed buffer is
+    copied into a pinned host buffer, the copy is waited for, the host
+    buffer is reduced (gloo, with no CUDA call on its threads), and the
+    sums are copied back into a new device buffer.  The copies are stream
+    operations, so a graph captures them; under :func:`cut_at_reduces` the
+    host buffer goes to the cut in place of the wait and the reduce."""
     out = list(tensors)
+    cut = _reduce_cut.get()
     for dtype in dict.fromkeys(t.dtype for t in out):
         pos = [i for i, t in enumerate(out) if t.dtype == dtype]
         flat = torch.cat([out[i].reshape(-1) for i in pos])
-        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+        host = flat
+        if flat.is_cuda:
+            host = _pinned(flat)
+            host.copy_(flat, non_blocking=True)
+        if cut is not None:
+            cut(host, group)
+        else:
+            if flat.is_cuda:
+                torch.cuda.current_stream(flat.device).synchronize()
+            reduce_host(host, group)
+        if flat.is_cuda:
+            flat = host.to(flat.device, non_blocking=True)
         for i, part in zip(pos, flat.split([out[i].numel() for i in pos])):
             out[i] = part.view(out[i].shape)
     return out

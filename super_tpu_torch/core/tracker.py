@@ -11,7 +11,8 @@ Profiler ranges (``step.*``) mark the stages for a traced run.
 
 :func:`make_jit_step` is the JAX package's compiled step: on the card,
 ``track_step`` captured once as a CUDA graph and replayed every frame
-(core/compiled.py), for every configuration but the sharded step.
+(core/compiled.py), for every configuration; the step sharded over a
+process group is captured by parallel/sharded.py:make_multichip_step.
 """
 
 from __future__ import annotations
@@ -171,24 +172,13 @@ def finish_step(cfg: SuPerConfig, intr: Intrinsics, state: TrackerState,
                         time=frame.time), outs
 
 
-def uncaptured_reason(cfg: SuPerConfig, models=None, group=None):
-    """Why :func:`make_jit_step` does not capture the step of ``cfg`` (with
-    ``models`` and a process ``group``), or None where it does: it
-    captures every step but one sharded over a group of processes."""
-    if group is not None and torch.distributed.get_world_size(group) > 1:
-        return ("track_step_sharded all-reduces every assembly through "
-                "torch.distributed (gloo: a host round trip), which no "
-                "graph holds; run parallel/sharded.py:track_step_sharded")
-    return None
-
-
 def jit_step_takes_prev(cfg: SuPerConfig, models=None) -> bool:
     """Whether :func:`make_jit_step`'s step is called as ``(intr, state,
     frame, prev_color)``: the sf_corr step with ``models``."""
     return models is not None and cfg.losses.sf_corr
 
 
-def make_jit_step(cfg: SuPerConfig, models=None, *, group=None):
+def make_jit_step(cfg: SuPerConfig, models=None):
     """The compiled step (the JAX package's ``make_jit_step``): a callable
     ``(intr, state, frame) -> (state, outs)`` that runs ``track_step``
     with ``cfg``, captured as a CUDA graph at its first call on the card
@@ -201,13 +191,9 @@ def make_jit_step(cfg: SuPerConfig, models=None, *, group=None):
     With ``sf_corr`` and ``models`` the callable is ``(intr, state, frame,
     prev_color)``, the flow net's inference inside the graph (its weights
     stay where they are): at the first frame, pass the frame's own colour
-    (zero flow, one capture).
-
-    Raises NotImplementedError, naming the reason, for the step sharded
-    over ``group`` (:func:`uncaptured_reason`)."""
-    reason = uncaptured_reason(cfg, models, group)
-    if reason is not None:
-        raise NotImplementedError(f"make_jit_step: {reason}")
+    (zero flow, one capture).  The step sharded over a process group is
+    captured where the JAX package jits it, in
+    parallel/sharded.py:make_multichip_step."""
     if not jit_step_takes_prev(cfg, models):
         return CapturedStep(functools.partial(track_step, cfg), carry=(1, 0))
     return CapturedStep(

@@ -6,9 +6,11 @@ standard environment (``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``,
 ``RANK``, ``LOCAL_RANK``), or the caller gives an ``init_method``.  The
 backend is the caller's choice: ``"nccl"`` when each process has a card
 of its own, ``"gloo"`` on the CPU and for several processes on one card
-(NCCL refuses two ranks on one device; gloo sums CUDA tensors through
-host memory).  Streams are process-local (video ingest is per host); only
-the shard group's sums cross processes.
+(NCCL refuses two ranks on one device).  Streams are process-local
+(video ingest is per host); only the shard group's sums cross processes,
+and they are summed on CPU tensors (core/losses.py:all_reduce_sum, on
+the card through pinned host buffers), so a mesh with two or more
+shards needs gloo.
 """
 
 from __future__ import annotations

@@ -17,7 +17,8 @@ super_tpu/parallel/sharded.py).
   on every process of the group.
 - :func:`make_multichip_step`: both over a ('stream', 'shard') mesh
   (parallel/mesh.py): this process's streams, each solved over its shard
-  group.
+  group, captured on the card as the stream batch is (with two or more
+  shards as graphs cut at the all-reduces).
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ import torch.distributed as dist
 from torch.profiler import record_function
 
 from super_tpu_torch.config import SuPerConfig
-from super_tpu_torch.core.compiled import CapturedStep
+from super_tpu_torch.core.compiled import CapturedStep, CutGraph
 from super_tpu_torch.core.lm import lm_solve
 from super_tpu_torch.core.losses import (
     LMContext,
@@ -167,8 +168,20 @@ def make_multichip_step(cfg: SuPerConfig, intr: Intrinsics, mesh):
     which streams of the whole batch they are, by this process's
     coordinate on 'stream'), and tracks each with its LM solve split over
     the process's 'shard' group.  Every process of a shard group gets the
-    same results."""
+    same results.
+
+    Captured at its first call on the card and replayed by every later
+    one, the counterpart of the JAX package's ``jax.jit`` of its mapped
+    step: with one shard the step has no collective and is
+    :func:`make_batched_step`'s, one CUDA graph; with two or more, one
+    graph for each stretch between two all-reduces, the all-reduces run on
+    the host between replays (core/compiled.py:CutGraph).  On CPU tensors
+    it runs eagerly on its buffers."""
     num_shards = mesh.size(mesh.mesh_dim_names.index("shard"))
-    group = mesh.get_group("shard") if num_shards > 1 else None
-    return _batched(functools.partial(track_step_sharded, cfg, intr,
-                                      num_shards, group=group))
+    if num_shards == 1:
+        return make_batched_step(cfg, intr)
+    run = _batched(functools.partial(track_step_sharded, cfg, intr,
+                                     num_shards, group=mesh.get_group(
+                                         "shard")))
+    return CapturedStep(run, carry=(0, 0), graph=(
+        CutGraph if mesh.device_type == "cuda" else None))

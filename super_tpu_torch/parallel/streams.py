@@ -6,11 +6,13 @@ stream's state is independent, so the streams batch (parallel/sharded.py:
 make_batched_step) and split over the 'stream' axis of a mesh
 (make_multichip_step).  This host loop drives the batched step over the
 streams' frames with per-stream tracking evaluation: the multi-sequence
-counterpart of pipeline.py.  As there, where make_jit_step captures the
-config (the LM solve and the autograd fit alike) the B streams' steps
-are one CUDA graph on the card, replayed once a batch, and each stream's
-frame is preprocessed by one captured ``preprocess_frame`` (``loop``
-"graph"); the mesh's sharded step runs eagerly (``loop`` "eager").
+counterpart of pipeline.py.  As there, the B streams' steps (the LM
+solve and the autograd fit alike) are one CUDA graph on the card,
+replayed once a batch, and each stream's frame is preprocessed by one
+captured ``preprocess_frame`` (``loop`` "graph"); on a mesh with two or
+more shards the step's graphs are cut at its all-reduces
+(make_multichip_step).  On CPU tensors both run eagerly (``loop``
+"eager").
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ from super_tpu_torch.core.track_points import (
     assign_track_points,
     record_track_coords,
 )
-from super_tpu_torch.core.tracker import init_tracker, uncaptured_reason
+from super_tpu_torch.core.tracker import init_tracker
 from super_tpu_torch.geometry.camera import Intrinsics
 from super_tpu_torch.parallel import multihost
 from super_tpu_torch.parallel.sharded import (
@@ -57,18 +59,11 @@ class MultiStreamPipeline:
         self.device = (multihost.mesh_device(mesh) if mesh is not None
                        else torch.device(device))
         self.intr = Intrinsics(*(x.to(self.device) for x in intr))
-        reason = ("the mesh's sharded step" if mesh is not None
-                  else uncaptured_reason(cfg))
-        self._preprocess = None
-        if mesh is not None:
-            self._step = make_multichip_step(cfg, self.intr, mesh)
-        else:
-            self._step = make_batched_step(cfg, self.intr,
-                                           compiled=reason is None)
-        if reason is None:
-            self._preprocess = captured_preprocess(cfg, self.device)
-            if self.device.type != "cuda":
-                reason = CPU_EAGER
+        self._step = (make_multichip_step(cfg, self.intr, mesh)
+                      if mesh is not None
+                      else make_batched_step(cfg, self.intr))
+        self._preprocess = captured_preprocess(cfg, self.device)
+        reason = CPU_EAGER if self.device.type != "cuda" else None
         self.loop = "eager" if reason else "graph"
         self.loop_reason = reason
         self.states = None

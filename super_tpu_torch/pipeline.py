@@ -60,7 +60,6 @@ from super_tpu_torch.core.tracker import (
     jit_step_takes_prev,
     make_jit_step,
     track_step,
-    uncaptured_reason,
 )
 from super_tpu_torch.geometry.camera import Intrinsics, project_points
 from super_tpu_torch.render.splat import render_zbuffer
@@ -216,18 +215,15 @@ class SuPerPipeline:
         return self.summary()
 
     def _choose_loop(self, models):
-        """The compiled steps where make_jit_step captures the config
-        (with ``models``), else the eager ones; ``loop`` says which."""
+        """The compiled steps (make_jit_step with ``models``) unless
+        ``compiled=False``; ``loop`` says whether they replay graphs."""
         if self.loop is not None:
             return
-        cfg, dev = self.cfg, self.device
-        reason = ("compiled=False" if not self.compiled
-                  else uncaptured_reason(cfg, models))
-        if reason is None:
-            self._step = make_jit_step(cfg, models)
-            self._preprocess = captured_preprocess(cfg, dev)
-            if dev.type != "cuda":
-                reason = CPU_EAGER
+        reason = "compiled=False"
+        if self.compiled:
+            self._step = make_jit_step(self.cfg, models)
+            self._preprocess = captured_preprocess(self.cfg, self.device)
+            reason = CPU_EAGER if self.device.type != "cuda" else None
         self.loop = "eager" if reason else "graph"
         self.loop_reason = reason
 

@@ -11,14 +11,11 @@ the captured outputs).  Each holds:
 - the bench's semantic configuration (Adam), its render-loss variant (one
   frame) and SGD (the tiny counterpart of ``semantic_super_config``):
   every frame's state and outputs bitwise the eager ``track_step``'s;
-- the captured steps in the port's SuPerPipeline against the JAX
-  package's SuPerPipeline running its jitted ``make_jit_step``: each
-  frame's mean reprojection error within the band that
-  tests/test_torch_semantic_pipeline.py holds the eager port to (0.5 px
-  or 20% of the JAX package's; the fit is chaotic at f32 rounding), for
-  SGD and the per-frame flow (JAX_BANDS says where the others are held);
+- (in test_torch_compiled_fit_jax.py) the captured steps in the port's
+  SuPerPipeline against the JAX package's SuPerPipeline running its
+  jitted ``make_jit_step``;
 - ``make_jit_step(cfg, models)`` with ``sf_corr`` and a deterministic
-  flow (tests/test_torch_corr_flow.py's ``_tflow`` / ``_jflow``): the
+  flow (tests/torch_helpers.py:corr_tflow / corr_jflow): the
   4-argument call bitwise the eager step with ``prev_color``, with the
   per-frame flow and with ``sf_corr_match_renderimg``;
 - the segment sum's scratch in a backward pass run on another thread
@@ -30,7 +27,6 @@ On the card chip_smoke.py's ``graph`` phase holds the CUDA graphs to the
 eager step bitwise.
 """
 
-import dataclasses
 import functools
 import threading
 import types
@@ -39,13 +35,11 @@ import numpy as np
 import pytest
 import torch
 
-from torch_helpers import StandInGraph, port_config, semantic_config, \
-    semantic_scene, same_tensor_bits
+from torch_helpers import CORR_T_MODELS as T_MODELS, FIT_CONFIGS, \
+    FIT_FLOWS, FIT_FRAMES, StandInGraph, fit_pipeline_run as _run, \
+    fit_port_pipeline as _port_pipeline, port_config, semantic_scene, \
+    same_tensor_bits
 
-from super_tpu import factory as jfactory
-from super_tpu.core.tracker import make_jit_step as jax_make_jit_step
-from super_tpu.pipeline import SuPerPipeline as JaxPipeline
-from super_tpu_torch import factory
 from super_tpu_torch.core.preprocess import preprocess_frame
 from super_tpu_torch.core.tracker import init_tracker, make_jit_step, \
     track_step
@@ -55,46 +49,8 @@ from super_tpu_torch.parallel.sharded import make_batched_step
 from super_tpu_torch.pipeline import SuPerPipeline
 from super_tpu_torch.utils.tree import stack, unstack
 
-FRAMES = 4               # frames of a run, frame 0 included
-
-# name: (configuration, frames of a run).  "render" tracks one frame: the
-# render loss's soft splat is the fit's dearest face on the CPU.
-CONFIGS = {
-    "adam": (semantic_config(render=False), FRAMES),
-    "render": (semantic_config(render=True), 2),
-    "sgd": (semantic_config(render=True, optimizer="SGD", lr=5e-5), FRAMES),
-}
-
-
-def _jflow(src, trg):
-    """tests/test_torch_corr_flow.py's flow (N, H, W, 2), JAX side."""
-    import jax.numpy as jnp
-
-    ms, mt = jnp.mean(src, axis=-1), jnp.mean(trg, axis=-1)
-    return jnp.stack([1.5 * (mt - ms) + 0.8, 0.9 * ms - 0.6], axis=-1)
-
-
-def _tflow(src, trg):
-    """The same flow (N, 2, H, W) of two NCHW images, port side."""
-    ms, mt = torch.mean(src, dim=1), torch.mean(trg, dim=1)
-    return torch.stack([1.5 * (mt - ms) + 0.8, 0.9 * ms - 0.6], dim=1)
-
-
-J_MODELS = jfactory.Models(None, None, None, None,
-                           types.SimpleNamespace(apply=lambda p, a, b:
-                                                 _jflow(a, b)), None)
-T_MODELS = factory.Models(None, None, _tflow)
-
-
-def _flow_config(match_renderimg):
-    base = CONFIGS["adam"][0]
-    return base.replace(losses=dataclasses.replace(
-        base.losses, sf_corr=True,
-        sf_corr_match_renderimg=match_renderimg))
-
-
-FLOWS = {"per_frame": (_flow_config(False), FRAMES),
-         "match_renderimg": (_flow_config(True), 2)}
+FRAMES = FIT_FRAMES
+CONFIGS, FLOWS = FIT_CONFIGS, FIT_FLOWS
 
 
 @pytest.fixture(scope="module")
@@ -189,87 +145,6 @@ def test_captured_flow_step_is_the_eager_step(scene, name):
     assert step.captured and step._graph.replays == n - 2
     # The corr face moved the fit: the flow step is not the plain one.
     assert float(got[0][1].lm_cost) != float(scene.eager("adam")[0][1].lm_cost)
-
-
-def _port_pipeline(cfg, models=None, graph=StandInGraph):
-    """The port's SuPerPipeline on the CPU with its compiled steps under
-    ``graph`` (None: the CPU seam)."""
-    pipe = SuPerPipeline(port_config(cfg),
-                         default_intrinsics(cfg.height, cfg.width,
-                                            device="cpu"), device="cpu")
-    pipe._choose_loop(models)
-    pipe._step._graph_type = graph
-    pipe._preprocess._graph_type = graph
-    return pipe
-
-
-def _run(pipe, seq, n, models=None):
-    return pipe.run(seq.depths[:n], seq.colors[:n], gt_xy=seq.gt_xy[:n],
-                    gt_valid=seq.gt_valid[:n], segs=seq.segs[:n],
-                    seg_confs=seq.seg_confs[:n], models=models)
-
-
-# The configurations whose captured steps are held to the JAX package's
-# here.  The others' eager steps, which their captured steps equal bit for
-# bit (above), are held to it elsewhere, the JAX package's compile being
-# most of such a test's time: the bench's and the render-loss
-# configuration by tests/test_torch_semantic_pipeline.py (6 frames, its
-# pipeline on make_jit_step's CPU seam), the flow of the render by
-# tests/test_torch_corr_flow.py (the corr face and its gradient).
-JAX_BANDS = ("sgd", "per_frame")
-
-
-@pytest.fixture(scope="module")
-def pipelines(scene):
-    """Per configuration of JAX_BANDS: (JAX pipeline on its jitted
-    make_jit_step, its summary, the port's pipeline on its captured steps,
-    its summary)."""
-    seq = scene.seq
-    out = {}
-    for name in JAX_BANDS:
-        cfg, n = {**CONFIGS, **FLOWS}[name]
-        flow = name in FLOWS
-        ref = JaxPipeline(cfg, scene.jintr)
-        if flow:
-            ref._step_flow = functools.partial(
-                jax_make_jit_step(cfg, J_MODELS), ref.intr)
-        else:
-            ref._step = functools.partial(jax_make_jit_step(cfg), ref.intr)
-        ref_m = _run(ref, seq, n, J_MODELS if flow else None)
-        models = T_MODELS if flow else None
-        port = _port_pipeline(cfg, models)
-        out[name] = (ref, ref_m, port, _run(port, seq, n, models))
-    return out
-
-
-def _frame_means(errors):
-    return np.array([np.mean(e[e >= 0]) for _, e in sorted(errors.items())])
-
-
-@pytest.mark.parametrize("name", JAX_BANDS)
-def test_captured_steps_within_the_jax_steps_band(pipelines, name):
-    """The port's pipeline on its captured steps (stand-in graph) against
-    the JAX package's on its jitted make_jit_step (the 4-argument one with
-    the flow): each frame's mean reprojection error within 0.5 px or 20%
-    of the JAX package's and every GT point valid in both (tests/
-    test_torch_semantic_pipeline.py's band), and the node counts equal.
-    Where the fit tracks, the surfel counts within 2% too.  SGD at lr
-    5e-5 diverges in both packages (ROADMAP queue 3: its steps on
-    gradients of ~6e4 at the identity amplify the sampled cells' f32
-    flips there), 19 to 27 px against a static error of 4.9, and its
-    surfel counts part by ~4% from frame 1 on."""
-    ref, ref_m, port, port_m = pipelines[name]
-    assert port.loop == "eager" and port._step.captured
-    ref_f, port_f = _frame_means(ref.errors), _frame_means(port.errors)
-    print(f"{name}: reproj per frame jax {np.round(ref_f, 4)} port "
-          f"{np.round(port_f, 4)}; surfels jax {ref_m['num_surfels']} "
-          f"port {port_m['num_surfels']}")
-    assert ref_m["frac_valid"] == port_m["frac_valid"] == 1.0
-    assert np.all(np.abs(port_f - ref_f) <= np.maximum(0.5, 0.2 * ref_f))
-    assert port_m["num_nodes"] == ref_m["num_nodes"]
-    if name != "sgd":
-        assert abs(port_m["num_surfels"] - ref_m["num_surfels"]) <= \
-            0.02 * ref_m["num_surfels"]
 
 
 def test_pipeline_compiled_is_the_eager_loop(scene):

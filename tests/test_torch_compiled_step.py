@@ -14,8 +14,8 @@ core/tracker.py:make_jit_step) on the CPU, where it has no graph.
   (no later call writes them).
 - The launch counters: a stand-in step that counts launches as the
   kernel wrappers do, captured and replayed: each run counts once.
-- make_jit_step's one refusal (a sharded group; the autograd fit and
-  sf_corr with nets are captured), the stream batch for B = 2 bitwise two
+- every step captured (the autograd fit, sf_corr with nets, the mesh's
+  step of one shard and of two), the stream batch for B = 2 bitwise two
   single tracks,
   and SuPerPipeline's compiled loop bitwise its eager one.
 
@@ -43,9 +43,10 @@ from super_tpu_torch.convert import to_numpy
 from super_tpu_torch.core import compiled
 from super_tpu_torch.core.preprocess import preprocess_frame
 from super_tpu_torch.core.tracker import init_tracker, make_jit_step, \
-    track_step, uncaptured_reason
+    track_step
 from super_tpu_torch.kernels import pcg, segsum
-from super_tpu_torch.parallel.sharded import make_batched_step
+from super_tpu_torch.parallel.sharded import make_batched_step, \
+    make_multichip_step
 from super_tpu_torch.pipeline import SuPerPipeline, captured_preprocess
 from super_tpu_torch.utils.tree import stack, unstack
 
@@ -181,30 +182,51 @@ def test_captured_step_refuses_another_structure(scene):
         step(pintr, (torch.zeros(3),))
 
 
-def test_make_jit_step_raises_for_what_it_does_not_capture(scene,
-                                                           monkeypatch):
-    """Only the step sharded over a process group is refused; the autograd
-    fit and the sf_corr step with nets are captured (tests/
-    test_torch_compiled_fit.py runs them)."""
-    pcfg = scene[3]
+class _Mesh:
+    """A ('stream', 'shard') mesh of ``shape`` without a world: what
+    make_multichip_step reads of a DeviceMesh."""
+
+    mesh_dim_names = ("stream", "shard")
+
+    def __init__(self, shape, device_type):
+        self.shape, self.device_type = shape, device_type
+        self.group = object()
+
+    def size(self, dim):
+        return self.shape[dim]
+
+    def get_group(self, name):
+        assert name == "shard"
+        return self.group
+
+
+def test_every_step_is_captured(scene):
+    """make_jit_step captures the autograd fit and the sf_corr step with
+    nets (tests/test_torch_compiled_fit.py runs them), and
+    make_multichip_step the mesh's step: a one-shard mesh as the stream
+    batch (one CUDA graph on the card), two shards as graphs cut at the
+    all-reduces on a card's mesh, eagerly on a CPU one."""
+    pcfg, pintr = scene[3], scene[4]
     autograd = pcfg.replace(solver=dataclasses.replace(
         pcfg.solver, use_derived_gradient=False))
-    assert uncaptured_reason(autograd) is None
     assert isinstance(make_jit_step(autograd), compiled.CapturedStep)
     corr = autograd.replace(losses=dataclasses.replace(autograd.losses,
                                                        sf_corr=True))
-    assert uncaptured_reason(corr, models=object()) is None
     assert isinstance(make_jit_step(corr, models=object()),
                       compiled.CapturedStep)
-    group = object()
-    monkeypatch.setattr(torch.distributed, "get_world_size",
-                        lambda g=None: 2 if g is group else 1)
-    with pytest.raises(NotImplementedError, match="track_step_sharded"):
-        make_jit_step(pcfg, group=group)
-    with pytest.raises(NotImplementedError, match="track_step_sharded"):
-        make_jit_step(autograd, group=group)
-    assert isinstance(make_batched_step(autograd, scene[4]),
+    assert isinstance(make_batched_step(autograd, pintr),
                       compiled.CapturedStep)
+    for device_type in ("cpu", "cuda"):
+        for cfg in (pcfg, autograd):
+            one = make_multichip_step(cfg, pintr, _Mesh((2, 1), device_type))
+            assert isinstance(one, compiled.CapturedStep)
+            assert one._graph_type is None
+        two = make_multichip_step(pcfg, pintr, _Mesh((1, 2), device_type))
+        assert isinstance(two, compiled.CapturedStep)
+        assert two._graph_type is (compiled.CutGraph
+                                   if device_type == "cuda" else None)
+    with pytest.raises(TypeError, match="group"):
+        make_jit_step(pcfg, group=object())
 
 
 def test_batched_step_is_two_single_tracks(scene):

@@ -309,3 +309,26 @@ def test_track_step_sharded_within_track_bands(shard_runs):
     check_track(([t["single"] for t in out["track"]],
                  [t["sharded"] for t in out["track"]],
                  out["track_nodes"]["single"], out["track_nodes"]["sharded"]))
+
+
+# Each frame of make_multichip_step's cut graph (the workers run it under
+# CutStandIn, tests/torch_parallel_worker.py) against the eager
+# track_step_sharded: the same operations on the same inputs, each
+# all-reduce performed at its cut, so the bits are the eager step's.  The
+# eager step is held to the single process above and, through the
+# assembly, to the JAX package's shard_map; the port's mesh step is that
+# eager step bit for bit.  A deferred frame cuts at its 10 assemblies and
+# the final cost (11), a classic one at 10 assemblies and 10 cost passes.
+@pytest.mark.parametrize("schedule,cuts", [("deferred", 11),
+                                           ("classic", 20)])
+def test_captured_multichip_step_is_the_eager_step(shard_runs, schedule,
+                                                   cuts):
+    key = "captured" if schedule == "deferred" else "captured_classic"
+    for out in shard_runs:
+        run = out[key]
+        assert len(run["captured"]) == len(run["eager"]) >= 2
+        for got, want in zip(run["captured"], run["eager"]):
+            same_bits(got, want)
+        assert run["cuts"] == [cuts] * len(run["cuts"])
+        assert len(run["cuts"]) == len(run["captured"])
+    same_bits(shard_runs[0][key]["captured"], shard_runs[1][key]["captured"])

@@ -16,6 +16,9 @@ the tracked pixels), on the port's main-path config:
   split over two processes, whose sums reassociate the single process's,
   so each stream is held to tests/torch_helpers.py:check_track's bands,
   and the two processes of a shard group to each other bitwise.
+
+make_multichip_step runs captured, under the workers' stand-in of the
+graphs cut at the all-reduces (tests/torch_parallel_worker.py:CutStandIn).
 """
 
 import dataclasses
@@ -61,6 +64,18 @@ def test_multichip_streams_are_the_single_stream_tracks(stream_runs):
     for out in stream_runs:
         same_bits(out["outs"], out["single_outs"])
         same_bits(out["state"], out["single_state"])
+
+
+def test_one_shard_mesh_step_is_one_graph(stream_runs):
+    """make_multichip_step of a one-shard mesh, captured (the workers'
+    stand-in of the cut graph), cuts nowhere: its capture and each replay
+    run the whole step as one graph; so does MultiStreamPipeline's, which
+    runs eagerly on CPU tensors."""
+    for out in stream_runs:
+        assert out["cuts"] == [0] * 3
+        loop, captured, cuts = out["pipe_loop"]
+        assert loop == "eager" and captured
+        assert cuts == [0] * len(cuts) and len(cuts) >= 2
 
 
 def test_streams_differ(stream_runs):
@@ -116,6 +131,13 @@ def test_mesh4_shard_pairs_agree_bitwise(mesh4_runs):
         same_bits(a["state"], b["state"])
     assert not np.allclose(mesh4_runs[0]["state"][0],
                            mesh4_runs[2]["state"][0])
+
+
+def test_mesh4_step_cuts_at_each_all_reduce(mesh4_runs):
+    """Each process's captured step cuts at the 11 all-reduces of a
+    deferred frame, at its capture and at each replay."""
+    for out in mesh4_runs:
+        assert out["cuts"] == [11] * 3
 
 
 @pytest.mark.parametrize("stream", [0, 1])

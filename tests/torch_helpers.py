@@ -7,11 +7,13 @@ so everything handed to the JAX side is float32 explicitly.
 """
 
 import dataclasses
+import json
 import os
 import pickle
 import re
 import subprocess
 import sys
+import types
 
 import jax
 import jax.numpy as jnp
@@ -21,8 +23,10 @@ from torch.utils import _pytree as pytree
 
 from helpers import tiny_config
 from super_tpu.core.preprocess import preprocess_frame
+from super_tpu import factory as jfactory
 from super_tpu.data.synthetic import default_intrinsics, generate
 from super_tpu_torch import convert
+from super_tpu_torch import factory as tfactory
 from super_tpu_torch.core import compiled
 
 torch.set_num_threads(2)
@@ -370,3 +374,120 @@ def same_tensor_bits(a, b):
             x = x.view(torch.int32 if x.element_size() == 4 else torch.int16)
             y = y.view(x.dtype)
         assert torch.equal(x, y)
+
+
+# The port's bench on the CPU at 48 x 64 (tests/test_torch_bench*.py).
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BENCH_TINY = ["--cpu", "--reps", "2", "--height", "48", "--width", "64",
+              "--mesh_step_size", "8"]
+BENCH_ROOT_KEYS = ("metric", "value", "unit", "vs_baseline", "streams",
+                   "per_stream_hz")
+
+
+def bench_line(capsys, monkeypatch, *extra):
+    """``python -m super_tpu_torch.bench`` at BENCH_TINY with ``extra``
+    flags: its one JSON line."""
+    from super_tpu_torch import bench
+
+    monkeypatch.setattr(sys, "argv", ["bench", *BENCH_TINY, *extra])
+    bench.main()
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 1
+    return json.loads(lines[0])
+
+
+# The sf_corr tests' flow and scene (tests/test_torch_corr_flow*.py).
+def corr_jflow(src, trg):
+    """The test's flow (N, H, W, 2) of two NHWC images, JAX side."""
+    ms, mt = jnp.mean(src, axis=-1), jnp.mean(trg, axis=-1)
+    return jnp.stack([1.5 * (mt - ms) + 0.8, 0.9 * ms - 0.6], axis=-1)
+
+
+def corr_tflow(src, trg):
+    """The same flow (N, 2, H, W) of two NCHW images, port side."""
+    ms, mt = torch.mean(src, dim=1), torch.mean(trg, dim=1)
+    return torch.stack([1.5 * (mt - ms) + 0.8, 0.9 * ms - 0.6], dim=1)
+
+
+CORR_J_MODELS = jfactory.Models(None, None, None, None,
+                                types.SimpleNamespace(
+                                    apply=lambda p, a, b: corr_jflow(a, b)),
+                                None)
+CORR_T_MODELS = tfactory.Models(None, None, corr_tflow)
+
+
+def corr_flow_scene(kinds=("point-point", "point-plane")):
+    """tests/test_torch_corr_flow.py's scene: the bench's semantic
+    configuration with sf_corr of each loss type of ``kinds``, on the tiny
+    scene: {loss type: (cfg, intr, frames, JAX state, JAX ctx, port ctx,
+    ...)}."""
+    from super_tpu.core import optimizer as jopt
+    from super_tpu.core.tracker import init_tracker
+    from super_tpu_torch.core import optimizer as topt
+
+    base = semantic_config(render=False)
+    intr, _, frames = semantic_scene(3, base)
+    st = jax.jit(lambda f: init_tracker(base, f))(frames[0])
+    flow = corr_jflow(frames[0].color_image.transpose(1, 2, 0)[None],
+                      frames[1].color_image.transpose(1, 2, 0)[None])[0]
+    flow = flow.transpose(2, 0, 1)
+    out = {}
+    for kind in kinds:
+        cfg = base.replace(losses=dataclasses.replace(
+            base.losses, sf_corr=True, sf_corr_loss_type=kind))
+        ctx = jopt.prepare_autograd(cfg, st.surfels, st.graph, frames[1],
+                                    flow=flow, intr=intr)
+        pcfg, ps, pintr = port_config(cfg), port_state(st), port_intr(intr)
+        pctx = topt.prepare_autograd(
+            pcfg, ps.surfels, ps.graph, port_frame(frames[1]),
+            flow=torch.as_tensor(np.asarray(flow)), intr=pintr)
+        out[kind] = types.SimpleNamespace(
+            cfg=cfg, intr=intr, frames=frames, st=st, ctx=ctx, pcfg=pcfg,
+            ps=ps, pctx=pctx, pintr=pintr)
+    return out
+
+
+# The compiled fit's configurations and pipelines (tests/
+# test_torch_compiled_fit*.py): name: (configuration, frames of a run).
+FIT_FRAMES = 4           # frames of a run, frame 0 included
+
+# name: (configuration, frames of a run).  "render" tracks one frame: the
+# render loss's soft splat is the fit's dearest face on the CPU.
+FIT_CONFIGS = {
+    "adam": (semantic_config(render=False), FIT_FRAMES),
+    "render": (semantic_config(render=True), 2),
+    "sgd": (semantic_config(render=True, optimizer="SGD", lr=5e-5),
+            FIT_FRAMES),
+}
+
+
+def _fit_flow_config(match_renderimg):
+    base = FIT_CONFIGS["adam"][0]
+    return base.replace(losses=dataclasses.replace(
+        base.losses, sf_corr=True,
+        sf_corr_match_renderimg=match_renderimg))
+
+
+FIT_FLOWS = {"per_frame": (_fit_flow_config(False), FIT_FRAMES),
+             "match_renderimg": (_fit_flow_config(True), 2)}
+
+
+def fit_port_pipeline(cfg, models=None, graph=StandInGraph):
+    """The port's SuPerPipeline on the CPU with its compiled steps under
+    ``graph`` (None: the CPU seam)."""
+    from super_tpu_torch.data.synthetic import default_intrinsics as tintr
+    from super_tpu_torch.pipeline import SuPerPipeline
+
+    pipe = SuPerPipeline(port_config(cfg),
+                         tintr(cfg.height, cfg.width, device="cpu"),
+                         device="cpu")
+    pipe._choose_loop(models)
+    pipe._step._graph_type = graph
+    pipe._preprocess._graph_type = graph
+    return pipe
+
+
+def fit_pipeline_run(pipe, seq, n, models=None):
+    return pipe.run(seq.depths[:n], seq.colors[:n], gt_xy=seq.gt_xy[:n],
+                    gt_valid=seq.gt_valid[:n], segs=seq.segs[:n],
+                    seg_confs=seq.seg_confs[:n], models=models)

@@ -12,7 +12,9 @@ Usage: python torch_parallel_worker.py <scenario> <rank> <world> <dir>
 - ``shard`` (2 ranks, mesh ('stream' 1, 'shard' 2)): the surfel-sharded
   assembly of each mode at two betas, the LM solve of frame 2, the bf16
   dense-memory solve, the pair solve through K1b, and 2 tracked frames
-  of ``track_step_sharded``, each beside the single process's;
+  of ``track_step_sharded``, each beside the single process's; then the
+  same frames through ``make_multichip_step`` captured (deferred and
+  classic schedules), beside the eager frames;
 - ``streams`` (2 ranks, mesh ('stream' 2, 'shard' 1)): each rank's
   stream through ``multihost.shard_stream_batch`` and
   ``make_multichip_step``, then ``MultiStreamPipeline(mesh=...)``, each
@@ -20,6 +22,9 @@ Usage: python torch_parallel_worker.py <scenario> <rank> <world> <dir>
 - ``mesh4`` (4 ranks, mesh ('stream' 2, 'shard' 2)): each stream tracked
   by its shard pair, beside the single-stream track (run by the pair's
   first rank).
+
+Every ``make_multichip_step`` runs captured under :class:`CutStandIn`, the
+cut graph's behaviour without a card.
 
 Writes ``<dir>/<scenario>_<rank>.pkl``: a dict of numpy arrays and numbers.
 """
@@ -33,6 +38,7 @@ import sys
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 ".."))
@@ -40,6 +46,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 import torch.distributed as dist  # noqa: E402
 
 from super_tpu_torch import convert  # noqa: E402
+from super_tpu_torch.core import compiled, losses  # noqa: E402
 from super_tpu_torch.core.losses import (  # noqa: E402
     assemble_normal_equations,
     associate,
@@ -56,7 +63,8 @@ from super_tpu_torch.parallel.sharded import (  # noqa: E402
     shard_ctx,
     track_step_sharded,
 )
-from super_tpu_torch.utils.tree import leaves, stack, tree_map  # noqa
+from super_tpu_torch.utils.tree import leaves, stack, tree_map, \
+    unstack  # noqa: E402
 
 CPU = torch.device("cpu")
 STREAM_FRAMES = 4        # frames of each stream (frame 0 initialises)
@@ -70,6 +78,45 @@ def _identity(j):
     beta = torch.zeros((j, 7))
     beta[:, 0] = 1.0
     return beta
+
+
+class CutStandIn:
+    """core/compiled.py:CutGraph's behaviour without a card (as
+    tests/torch_helpers.py:StandInGraph's for a CUDA graph): the capture
+    runs ``body`` once, each all-reduce performed at its cut; a replay
+    runs it again with every launch counter left as it was and writes its
+    results into the captured outputs in place.  ``cuts`` holds each
+    run's count of cuts, the capture's first."""
+
+    def __init__(self, body, stream):
+        self.body = body
+        self.cuts = []
+        self.outputs = self._run()
+
+    def _cut(self, host, group):
+        self.cuts[-1] += 1
+        losses.reduce_host(host, group)
+
+    def _run(self):
+        self.cuts.append(0)
+        with losses.cut_at_reduces(self._cut):
+            return self.body()
+
+    def replay(self):
+        counts = compiled.launch_counts()
+        new = self._run()
+        for k, c in zip(compiled.counted_kernels(), counts):
+            k.launches = c
+        for old, fresh in zip(pytree.tree_leaves(self.outputs),
+                              pytree.tree_leaves(new)):
+            if old.data_ptr() != fresh.data_ptr():
+                old.copy_(fresh)
+
+
+def _multichip_step(cfg, intr, mesh):
+    step = make_multichip_step(cfg, intr, mesh)
+    step._graph_type = CutStandIn
+    return step
 
 
 def _mesh_info(mesh):
@@ -147,7 +194,34 @@ def scenario_shard(inp, rank):
         out["track"].append(dict(single=_np(o1), sharded=_np(o2)))
     out["track_nodes"] = dict(single=_np(single.graph.points),
                               sharded=_np(sharded.graph.points))
+    out["captured"] = _captured_frames(cfg, intr, mesh, group, state,
+                                       frames[1:])
+    classic = dataclasses.replace(cfg, solver=dataclasses.replace(
+        cfg.solver, lm_schedule="classic"))
+    out["captured_classic"] = _captured_frames(classic, intr, mesh, group,
+                                               state, frames[1:2])
     return out
+
+
+def _captured_frames(cfg, intr, mesh, group, state0, frames):
+    """``frames`` tracked from ``state0`` by track_step_sharded and through
+    make_multichip_step captured: its first call (the eager warm-up, then
+    the capture), a replay a frame after it, then the first frame again
+    from ``state0`` as a replay.  The eager and captured states and
+    outputs of each frame, numpy, and the stand-in's cuts a run."""
+    eager, state = [], state0
+    for f in frames:
+        state, o = track_step_sharded(cfg, intr, 2, state, f, group=group)
+        eager.append(_np((state, o)))
+    step = _multichip_step(cfg, intr, mesh)
+    got, states = [], stack([state0])
+    for f in frames + frames[:1]:
+        if len(got) == len(frames):
+            states = stack([state0])
+        states, o = step(states, stack([f]))
+        got.append(_np((unstack(states)[0], unstack(o)[0])))
+    return dict(eager=eager + eager[:1], captured=got,
+                cuts=step._graph.cuts)
 
 
 def _stream_data(inp):
@@ -192,14 +266,14 @@ def _multichip_track(cfg, intr, mesh, streams, depths, colors):
               for s in range(len(streams))[block]]
     host = _np(stack([init_tracker(cfg, f[0]) for f in frames]))
     states = multihost.shard_stream_batch(mesh, host)
-    step = make_multichip_step(cfg, intr, mesh)
+    step = _multichip_step(cfg, intr, mesh)
     outs = []
     for t in range(1, STREAM_FRAMES):
         fb = multihost.shard_stream_batch(mesh, _np(stack(
             [f[t] for f in frames])))
         states, o = step(states, fb)
         outs.append(_np(o))
-    return block, frames, states, outs
+    return block, frames, states, outs, step._graph.cuts
 
 
 def _state_arrays(state):
@@ -215,16 +289,19 @@ def scenario_streams(inp, rank):
     mesh = make_mesh(device_type="cpu")       # every rank on 'stream'
     out = _mesh_info(mesh)
     cfg, intr, (depths, colors, gt_xy, gt_valid) = _stream_data(inp)
-    block, frames, states, outs = _multichip_track(
+    block, frames, states, outs, cuts = _multichip_track(
         cfg, intr, mesh, inp["streams"], depths, colors)
     s = range(len(inp["streams"]))[block][0]
     single, single_outs = _single_track(cfg, intr, frames[0])
-    out.update(stream=s, outs=[tree_map(lambda x: x[0], o) for o in outs],
+    out.update(stream=s, cuts=cuts,
+               outs=[tree_map(lambda x: x[0], o) for o in outs],
                single_outs=single_outs,
                state=_state_arrays(tree_map(lambda x: x[0], states)),
                single_state=_state_arrays(single))
 
     pipe = MultiStreamPipeline(cfg, intr, mesh=mesh, device="cpu")
+    pipe._step._graph_type = CutStandIn
+    pipe._preprocess._graph_type = CutStandIn
     out["summary"] = pipe.run(depths, colors, gt_xy=gt_xy, gt_valid=gt_valid)
     ref = SuPerPipeline(cfg, intr, device="cpu")
     ref.run(depths[s], colors[s], gt_xy=gt_xy[s], gt_valid=gt_valid[s])
@@ -234,6 +311,8 @@ def scenario_streams(inp, rank):
     out["ref_state"] = _state_arrays(ref.state)
     out["ref_track"] = [np.asarray(x) for x in leaves(_np(ref.state.track))]
     out["pipe_errors"] = pipe.errors[0]
+    out["pipe_loop"] = (pipe.loop, pipe._step.captured,
+                        pipe._step._graph.cuts)
     out["ref_errors"] = ref.errors
     return out
 
@@ -242,9 +321,9 @@ def scenario_mesh4(inp, rank):
     mesh = make_mesh(num_streams=2, num_shards=2, device_type="cpu")
     out = _mesh_info(mesh)
     cfg, intr, (depths, colors, _, _) = _stream_data(inp)
-    block, frames, states, outs = _multichip_track(
+    block, frames, states, outs, cuts = _multichip_track(
         cfg, intr, mesh, inp["streams"], depths, colors)
-    out.update(stream=range(len(inp["streams"]))[block][0],
+    out.update(stream=range(len(inp["streams"]))[block][0], cuts=cuts,
                outs=[tree_map(lambda x: x[0], o) for o in outs],
                nodes=_np(states.graph.points[0]),
                state=_state_arrays(tree_map(lambda x: x[0], states)))
