@@ -43,6 +43,15 @@ a backward pass on autograd's own thread too.  The segment sum's scratch
 scratch of their own, backward passes included, which no later call
 replaces while the graph lives; so do the pinned host buffers of its
 all-reduces (core/losses.py:host_buffers).
+
+A call is three spans (utils/profiling.py:span): ``graph.load``, the
+arguments copied into the buffers; ``graph.run``, the replay's launch (the
+eager run on the CPU and at the first call); ``graph.copy_out``, the
+outputs' copies.  With ``stage_times`` every run also times the step's
+stages (utils/profiling.py:STAGES) and the whole body with pairs of
+timing events, which the capture records as event nodes of the graph;
+:meth:`CapturedStep.stage_ms` reads the last run's.  Without it (the
+default) the graph holds no such node.
 """
 
 from __future__ import annotations
@@ -57,6 +66,8 @@ from torch.utils import _pytree as pytree
 
 from super_tpu_torch.core import losses
 from super_tpu_torch.kernels import gram, pcg, segsum
+from super_tpu_torch.utils import profiling
+from super_tpu_torch.utils.profiling import span
 
 
 def counted_kernels():
@@ -166,12 +177,17 @@ class CapturedStep:
     """``fn(*args)`` captured once and replayed (see the module
     docstring).  ``carry=(i, j)``: output ``j`` is written back into the
     buffers of argument ``i`` at the end of every run.  ``device``: where
-    the buffers live, else the device of the first tensor argument."""
+    the buffers live, else the device of the first tensor argument.
+    ``stage_times``: time the step's stages in every run
+    (:meth:`stage_ms`)."""
 
     def __init__(self, fn, *, carry: Optional[Tuple[int, int]] = None,
-                 device=None, graph=None):
+                 device=None, graph=None, stage_times: bool = False):
         self.fn = fn
         self.carry = carry
+        self.stage_times = stage_times
+        self._body_timer = None    # the StageTimer of the last body run
+        self._timer = None         # the StageTimer of the last run
         self.device = None if device is None else torch.device(device)
         self._graph_type = graph
         self._graph = None
@@ -270,9 +286,33 @@ class CapturedStep:
     def _body(self):
         with segsum.scratch_scope(self._scratch), \
                 losses.host_buffers(self._host):
-            out = self.fn(*self._args)
-            self._write_back(out)
+            if not self.stage_times:
+                out = self.fn(*self._args)
+                self._write_back(out)
+                return out
+            timer = profiling.StageTimer(self.device.type == "cuda")
+            with profiling.stage_timing(timer), timer.stage(profiling.BODY):
+                out = self.fn(*self._args)
+                self._write_back(out)
+            self._body_timer = timer
         return out
+
+    def stage_ms(self) -> dict:
+        """{stage: ms} of the last run (``stage_times``; empty without):
+        device time between its events on the card, read after the
+        caller's synchronisation; host time of the eager run on the
+        CPU."""
+        if self._timer is None:
+            return {}
+        ms = self._timer.ms()
+        ms.pop(profiling.BODY)
+        return ms
+
+    def body_ms(self) -> Optional[float]:
+        """ms of the last run's whole body (``stage_times``), the carry's
+        write-back included; None without."""
+        return None if self._timer is None else \
+            self._timer.ms()[profiling.BODY]
 
     def run(self):
         """Run the step on the loaded buffers: the warm-up and the capture
@@ -282,6 +322,7 @@ class CapturedStep:
             raise RuntimeError("CapturedStep.run: nothing loaded")
         if not self._uses_graph():
             self._outputs = self._body()
+            self._timer = self._body_timer
             return self._outputs
         if self._graph is not None:
             self.replay()
@@ -293,6 +334,7 @@ class CapturedStep:
             side.wait_stream(cur)
         with torch.cuda.stream(side) if side else contextlib.nullcontext():
             out = self._body()
+        warm_timer = self._body_timer
         if side is not None:
             cur.wait_stream(side)
             for x in pytree.tree_leaves(out):
@@ -304,6 +346,7 @@ class CapturedStep:
         self._delta = [b - a for a, b in zip(before, launch_counts())]
         _advance_counts([-d for d in self._delta])
         self._outputs = self._graph.outputs
+        self._timer = warm_timer     # the capture ran nothing
         return out
 
     def replay(self):
@@ -316,6 +359,7 @@ class CapturedStep:
             raise RuntimeError("CapturedStep.replay: nothing captured yet")
         self._graph.replay()
         _advance_counts(self._delta)
+        self._timer = self._body_timer   # the capture's events
 
     def result(self, out=None):
         """Copies of ``out`` (default: the last run's outputs)."""
@@ -324,5 +368,9 @@ class CapturedStep:
             lambda x: x.clone() if isinstance(x, torch.Tensor) else x, out)
 
     def __call__(self, *args):
-        self.load(*args)
-        return self.result(self.run())
+        with span("graph.load"):
+            self.load(*args)
+        with span("graph.run"):
+            out = self.run()
+        with span("graph.copy_out"):
+            return self.result(out)

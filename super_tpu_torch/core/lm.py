@@ -28,7 +28,6 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from super_tpu_torch.config import SuPerConfig
 from super_tpu_torch.core.losses import (
@@ -39,6 +38,7 @@ from super_tpu_torch.core.losses import (
 )
 from super_tpu_torch.geometry.camera import Intrinsics
 from super_tpu_torch.kernels.pcg import dense_cg, pairs_cg
+from super_tpu_torch.utils.profiling import span
 
 
 class LMResult(NamedTuple):
@@ -393,21 +393,21 @@ def lm_solve(cfg: SuPerConfig, ctx: LMContext, intr: Intrinsics,
     point_plane = cfg.losses.sf_point_plane
     assoc = None
     if sol.association == "per_frame" and point_plane:
-        with record_function("lm.associate"):
+        with span("lm.associate"):
             assoc = associate(cfg, ctx, intr)
     per_it_frozen = sol.association == "per_iteration_frozen" and point_plane
 
     def assemble(beta):
-        with record_function("lm.assemble"):
+        with span("lm.assemble"):
             a = assoc
             if per_it_frozen:
-                with record_function("lm.associate"):
+                with span("lm.associate"):
                     a = associate(cfg, ctx, intr, beta=beta)
             return assemble_normal_equations(cfg, ctx, beta, intr, a,
                                              group=group)
 
     def solve(jtj, jtr, u, x0):
-        with record_function("lm.solve"):
+        with span("lm.solve"):
             delta = solve_damped(cfg, ctx.layout, jtj, jtr, u, j_cap, x0)
         ok = torch.all(torch.isfinite(delta))
         return torch.where(ok, delta, 0.0), ok
@@ -446,7 +446,7 @@ def lm_solve(cfg: SuPerConfig, ctx: LMContext, intr: Intrinsics,
         beta_cand = best_beta + delta.reshape(j_cap, 7)
         delta_prev = delta
 
-    with record_function("lm.final_cost"):
+    with span("lm.final_cost"):
         cost_c = total_cost(cfg, ctx, beta_cand, intr, assoc, group=group)
     accept = torch.isfinite(cost_c) & (cost_c < best_cost)
     best_beta = torch.where(accept, beta_cand, best_beta)
@@ -470,7 +470,7 @@ def _lm_solve_classic(cfg: SuPerConfig, ctx: LMContext, intr, assoc, beta0,
         # delta never warm-starts the more-damped re-solve.)
         delta, ok = solve(jtj, jtr, u, delta_prev)
         beta_new = beta + delta.reshape(beta.shape)
-        with record_function("lm.cost"):
+        with span("lm.cost"):
             cost = total_cost(cfg, ctx, beta_new, intr, assoc, group=group)
         accept = ok & (cost < best_cost)
         best_beta = torch.where(accept, beta_new, best_beta)
@@ -506,7 +506,7 @@ def _lm_solve_hypotheses(cfg: SuPerConfig, ctx: LMContext, intr, assoc,
         for h in range(hyp):
             delta, ok = solve(jtj, jtr, us[h], None)
             cand = beta + delta.reshape(j_cap, 7)
-            with record_function("lm.cost"):
+            with span("lm.cost"):
                 cost = total_cost(cfg, ctx, cand, intr, assoc, group=group)
             cands.append(cand)
             costs.append(torch.where(ok, cost, float("inf")))

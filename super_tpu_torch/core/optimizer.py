@@ -28,7 +28,6 @@ from __future__ import annotations
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
-from torch.profiler import record_function
 
 from super_tpu_torch.config import SuPerConfig
 from super_tpu_torch.core import losses as lm_losses
@@ -50,6 +49,7 @@ from super_tpu_torch.ops.bilinear import (
     build_corner_bank_zx,
 )
 from super_tpu_torch.render.splat import render_soft
+from super_tpu_torch.utils.profiling import span
 
 
 class AutogradContext(NamedTuple):
@@ -358,7 +358,7 @@ def graph_fit(cfg: SuPerConfig, surfels: SurfelState, graph: GraphState,
     flow_model = getattr(models, "flow_model", None)
     if losses.sf_corr and flow_model is not None:
         def infer(src, trg):
-            with torch.no_grad(), record_function("graph_fit.flow"):
+            with torch.no_grad(), span("graph_fit.flow"):
                 return flow_model(src[None], trg[None])[0]
 
         if losses.sf_corr_match_renderimg:
@@ -366,7 +366,7 @@ def graph_fit(cfg: SuPerConfig, surfels: SurfelState, graph: GraphState,
                 rendered, frame.color_image)
         elif prev_color is not None:
             flow0 = infer(prev_color, frame.color_image)
-    with record_function("graph_fit.prepare"):
+    with span("graph_fit.prepare"):
         ctx = prepare_autograd(cfg, surfels, graph, frame, flow=flow0,
                                intr=intr)
     dev = surfels.points.device
@@ -379,12 +379,12 @@ def graph_fit(cfg: SuPerConfig, surfels: SurfelState, graph: GraphState,
     loss = deform.new_zeros(())
     for _ in range(sol.num_iterations):
         deform.requires_grad_(True)
-        with record_function("graph_fit.loss"):
+        with span("graph_fit.loss"):
             loss = autograd_total(cfg, ctx, graph, deform, intr,
                                   flow_fn=flow_fn)[0]
-        with record_function("graph_fit.backward"):
+        with span("graph_fit.backward"):
             grad, = torch.autograd.grad(loss, deform)
-        with record_function("graph_fit.step"), torch.no_grad():
+        with span("graph_fit.step"), torch.no_grad():
             grad[-1] = grad[-1] / ctx.num_active_nodes
             deform, state = fit_update(sol.optimizer, sol.learning_rate,
                                        grad, state, deform.detach())

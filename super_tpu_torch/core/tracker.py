@@ -7,7 +7,8 @@ projections.  The warp field comes from the LM solve (prepare_lm, lm_solve)
 with ``use_derived_gradient``, else from the autograd fit
 (core/optimizer.py:graph_fit).  The step issues no host sync: every counter
 of :class:`StepOutputs` stays a device tensor until the caller reads it.
-Profiler ranges (``step.*``) mark the stages for a traced run.
+Spans (``step.*``, utils/profiling.py:span) mark the stages for a traced
+run, and time them in a step built with ``stage_times``.
 
 :func:`make_jit_step` is the JAX package's compiled step: on the card,
 ``track_step`` captured once as a CUDA graph and replayed every frame
@@ -21,7 +22,6 @@ import functools
 from typing import NamedTuple, Tuple
 
 import torch
-from torch.profiler import record_function
 
 from super_tpu_torch.config import SuPerConfig
 from super_tpu_torch.core import fusion as fusion_mod
@@ -44,6 +44,7 @@ from super_tpu_torch.geometry.camera import (
     pixel_grid,
     project_points,
 )
+from super_tpu_torch.utils.profiling import span
 
 
 def init_surfels_from_frame(cfg: SuPerConfig, graph: GraphState,
@@ -116,21 +117,21 @@ def track_step(cfg: SuPerConfig, intr: Intrinsics, state: TrackerState,
     ``models`` (factory.Models) and ``prev_color`` (3, H, W) feed the flow
     of the autograd fit's ``sf_corr`` term (core/optimizer.py:graph_fit)."""
     if cfg.solver.use_derived_gradient:
-        with record_function("step.prepare_lm"):
+        with span("step.prepare_lm"):
             ctx = prepare_lm(cfg, state.surfels, state.graph, frame)
-        with record_function("step.lm_solve"):
+        with span("step.lm_solve"):
             result = lm_solve(cfg, ctx, intr)
-        with record_function("step.apply_deformation"):
+        with span("step.apply_deformation"):
             surfels, graph = apply_deformation(cfg, state.surfels,
                                                state.graph, result.beta)
         cost, damping = result.cost, result.final_damping
         overflow = layout_overflow(ctx, frame.points.device)
     else:
-        with record_function("step.graph_fit"):
+        with span("step.graph_fit"):
             deform, cost = graph_fit(cfg, state.surfels, state.graph, frame,
                                      intr, models=models,
                                      prev_color=prev_color)
-        with record_function("step.apply_deformation"):
+        with span("step.apply_deformation"):
             surfels, graph = apply_deformation(cfg, state.surfels,
                                                state.graph, deform[:-1],
                                                global_dq=deform[-1])
@@ -148,10 +149,10 @@ def finish_step(cfg: SuPerConfig, intr: Intrinsics, state: TrackerState,
     """The step after the warp is applied: fuse the frame, prune, refresh
     the projections, and the frame's outputs; ``overflow`` is the solve's
     (tuple_overflow, pair_overflow)."""
-    with record_function("step.fuse_frame"):
+    with span("step.fuse_frame"):
         surfels, remap, fdiag = fusion_mod.fuse_frame(cfg, intr, surfels,
                                                       graph, frame)
-    with record_function("step.prune"):
+    with span("step.prune"):
         # Tracked surfels merged into another slot follow the merge.
         track = state.track
         tid = torch.clamp(track.track_id, 0, surfels.capacity - 1).long()
@@ -178,7 +179,7 @@ def jit_step_takes_prev(cfg: SuPerConfig, models=None) -> bool:
     return models is not None and cfg.losses.sf_corr
 
 
-def make_jit_step(cfg: SuPerConfig, models=None):
+def make_jit_step(cfg: SuPerConfig, models=None, stage_times: bool = False):
     """The compiled step (the JAX package's ``make_jit_step``): a callable
     ``(intr, state, frame) -> (state, outs)`` that runs ``track_step``
     with ``cfg``, captured as a CUDA graph at its first call on the card
@@ -193,10 +194,15 @@ def make_jit_step(cfg: SuPerConfig, models=None):
     stay where they are): at the first frame, pass the frame's own colour
     (zero flow, one capture).  The step sharded over a process group is
     captured where the JAX package jits it, in
-    parallel/sharded.py:make_multichip_step."""
+    parallel/sharded.py:make_multichip_step.
+
+    ``stage_times``: the step times its stages in every run, with timing
+    events in the graph (CapturedStep.stage_ms; profile_step.py
+    --captured); the pipelines build it without."""
     if not jit_step_takes_prev(cfg, models):
-        return CapturedStep(functools.partial(track_step, cfg), carry=(1, 0))
+        return CapturedStep(functools.partial(track_step, cfg), carry=(1, 0),
+                            stage_times=stage_times)
     return CapturedStep(
         lambda intr, state, frame, prev: track_step(
             cfg, intr, state, frame, models=models, prev_color=prev),
-        carry=(1, 0))
+        carry=(1, 0), stage_times=stage_times)

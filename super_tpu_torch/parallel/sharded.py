@@ -28,7 +28,6 @@ from typing import Tuple
 
 import torch
 import torch.distributed as dist
-from torch.profiler import record_function
 
 from super_tpu_torch.config import SuPerConfig
 from super_tpu_torch.core.compiled import CapturedStep, CutGraph
@@ -48,6 +47,7 @@ from super_tpu_torch.core.tracker import (
 )
 from super_tpu_torch.core.warp import apply_deformation
 from super_tpu_torch.geometry.camera import Intrinsics
+from super_tpu_torch.utils.profiling import span
 from super_tpu_torch.utils.tree import batch_size, stack, unstack
 
 # The context's fields with one entry per surfel slot on their last axis.
@@ -115,13 +115,13 @@ def track_step_sharded(cfg: SuPerConfig, intr: Intrinsics, num_shards: int,
     if not cfg.solver.use_derived_gradient:
         raise ValueError("track_step_sharded shards the LM solve "
                          "(use_derived_gradient)")
-    with record_function("step.prepare_lm"):
+    with span("step.prepare_lm"):
         ctx = prepare_lm(cfg, state.surfels, state.graph, frame)
         overflow = layout_overflow(ctx, frame.points.device)
         ctx = shard_ctx(ctx, dist.get_rank(group), num_shards)
-    with record_function("step.lm_solve"):
+    with span("step.lm_solve"):
         result = lm_solve(cfg, ctx, intr, group=group)
-    with record_function("step.apply_deformation"):
+    with span("step.apply_deformation"):
         surfels, graph = apply_deformation(cfg, state.surfels, state.graph,
                                            result.beta)
     return finish_step(cfg, intr, state, frame, surfels, graph, result.cost,
@@ -143,7 +143,7 @@ def _batched(step):
 
 
 def make_batched_step(cfg: SuPerConfig, intr: Intrinsics, *,
-                      compiled: bool = True):
+                      compiled: bool = True, stage_times: bool = False):
     """The single-process multi-stream step: stacked (B, ...)
     ``TrackerState`` and ``FrameData`` to stacked states and
     ``StepOutputs``.
@@ -156,9 +156,11 @@ def make_batched_step(cfg: SuPerConfig, intr: Intrinsics, *,
     and the autograd fit alike.  The graph holds the loop's order, so
     each stream stays bitwise its single track; each call returns results
     that no later call overwrites.  Without ``compiled``, the eager
-    loop."""
+    loop.  ``stage_times``: each stage's time summed over the streams
+    (CapturedStep.stage_ms)."""
     run = _batched(functools.partial(track_step, cfg, intr))
-    return CapturedStep(run, carry=(0, 0)) if compiled else run
+    return CapturedStep(run, carry=(0, 0), stage_times=stage_times) \
+        if compiled else run
 
 
 def make_multichip_step(cfg: SuPerConfig, intr: Intrinsics, mesh):

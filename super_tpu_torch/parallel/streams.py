@@ -12,7 +12,9 @@ replayed once a batch, and each stream's frame is preprocessed by one
 captured ``preprocess_frame`` (``loop`` "graph"); on a mesh with two or
 more shards the step's graphs are cut at its all-reduces
 (make_multichip_step).  On CPU tensors both run eagerly (``loop``
-"eager").
+"eager").  The loop's spans are pipeline.py's (``pipeline.frame`` a
+batch step; ``pipeline.fetch`` and ``pipeline.preprocess`` once a
+stream).
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from super_tpu_torch.parallel.sharded import (
 )
 from super_tpu_torch.pipeline import CPU_EAGER, _chw, captured_preprocess
 from super_tpu_torch.utils import evaluation
+from super_tpu_torch.utils.profiling import span
 from super_tpu_torch.utils.tree import stack, unstack
 
 
@@ -85,24 +88,34 @@ class MultiStreamPipeline:
         ids = range(b)[self.streams]
         cfg, dev = self.cfg, self.device
         self.errors = [dict() for _ in ids]
+        cuda = dev.type == "cuda"
         for t in range(t_total):
-            tic = _time.perf_counter()
-            frames = [self._frame(np.asarray(depths[s][t]),
-                                  _chw(colors[s][t]), float(t))
-                      for s in ids]
-            if self.states is None:
-                self.states = stack([init_tracker(cfg, f) for f in frames])
-            else:
-                self.states, outs = self._step(self.states, stack(frames))
-                self.outputs.append(outs)
-            if gt_xy is not None:
-                self._eval_frame(t, ids, frames, gt_xy, gt_valid)
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            self.frame_times.append(_time.perf_counter() - tic)
-            if verbose:
-                print(f"t={t}: {self.frame_times[-1] * 1e3:.0f} ms "
-                      f"({len(ids)} streams)")
+            with span("pipeline.frame"):
+                tic = _time.perf_counter()
+                frames = []
+                for s in ids:
+                    with span("pipeline.fetch"):
+                        depth = np.asarray(depths[s][t])
+                        color = _chw(colors[s][t])
+                    with span("pipeline.preprocess"):
+                        frames.append(self._frame(depth, color, float(t)))
+                with span("pipeline.step"):
+                    if self.states is None:
+                        self.states = stack([init_tracker(cfg, f)
+                                             for f in frames])
+                    else:
+                        self.states, outs = self._step(self.states,
+                                                       stack(frames))
+                        self.outputs.append(outs)
+                if gt_xy is not None:
+                    self._eval_frame(t, ids, frames, gt_xy, gt_valid)
+                with span("pipeline.sync"):
+                    if cuda:
+                        torch.cuda.synchronize(dev)
+                self.frame_times.append(_time.perf_counter() - tic)
+                if verbose:
+                    print(f"t={t}: {self.frame_times[-1] * 1e3:.0f} ms "
+                          f"({len(ids)} streams)")
         return self.summary()
 
     def _frame(self, depth, color, time):
@@ -113,29 +126,34 @@ class MultiStreamPipeline:
                                 device=self.device)
 
     def _eval_frame(self, t, ids, frames, gt_xy, gt_valid):
-        """Bind and read each stream's tracked points; one host read for
-        the batch."""
+        """Bind each stream's tracked points (enqueued), then read them,
+        one host read for the batch, and keep their errors."""
         dev = self.device
-        tracks = []
-        for s, frame, st in zip(ids, frames, unstack(self.states)):
-            track = assign_track_points(
-                self.cfg, st.surfels, frame, st.track,
-                torch.as_tensor(np.asarray(gt_xy[s][t]).astype(np.int32),
-                                device=dev),
-                torch.as_tensor(np.asarray(gt_valid[s][t]), device=dev))
-            tracks.append(record_track_coords(st.surfels, track))
-        track = stack(tracks)
-        self.states = self.states._replace(track=track)
-        est_xy = track.coords.cpu().numpy()
-        est_v = track.coord_valid.cpu().numpy()
-        for i, s in enumerate(ids):
-            gtv = np.concatenate([np.asarray(gt_xy[s][t]), np.asarray(
-                gt_valid[s][t])[:, None]], axis=1).astype(np.float32)
-            est = np.concatenate(
-                [est_xy[i], est_v[i][:, None].astype(np.float32)], axis=1)
-            err = evaluation.reprojection_errors(gtv, est)
-            err[~est_v[i]] = -1.0
-            self.errors[i][t] = err
+        with span("pipeline.gt_binding"):
+            gt = [(np.asarray(gt_xy[s][t]), np.asarray(gt_valid[s][t]))
+                  for s in ids]
+            tracks = []
+            for (xy, valid), frame, st in zip(gt, frames,
+                                              unstack(self.states)):
+                track = assign_track_points(
+                    self.cfg, st.surfels, frame, st.track,
+                    torch.as_tensor(xy.astype(np.int32), device=dev),
+                    torch.as_tensor(valid, device=dev))
+                tracks.append(record_track_coords(st.surfels, track))
+            track = stack(tracks)
+            self.states = self.states._replace(track=track)
+        with span("pipeline.read"):
+            est_xy = track.coords.cpu().numpy()
+            est_v = track.coord_valid.cpu().numpy()
+            for i, (xy, valid) in enumerate(gt):
+                gtv = np.concatenate([xy, valid[:, None]],
+                                     axis=1).astype(np.float32)
+                est = np.concatenate(
+                    [est_xy[i], est_v[i][:, None].astype(np.float32)],
+                    axis=1)
+                err = evaluation.reprojection_errors(gtv, est)
+                err[~est_v[i]] = -1.0
+                self.errors[i][t] = err
 
     def stream_means(self) -> List[float]:
         """Each stream's mean reprojection error, all B streams (gathered

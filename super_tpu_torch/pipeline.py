@@ -6,9 +6,21 @@ lives on the host: each frame is preprocessed onto the device, frame 0
 initialises the tracker, every later frame runs ``track_step``, and where
 ground truth is given the tracked points are bound and read
 (core/track_points.py) and their reprojection errors kept
-(utils/evaluation.py).  The loop synchronises with the device once a
-frame, for the frame's time, as the JAX package's ``block_until_ready``
-does.
+(utils/evaluation.py).  A frame with ground truth first waits for the
+card where it reads the tracked points to the host (their ``.cpu()``,
+behind the step and the binding); then the loop synchronises with the
+device, for the frame's time, as the JAX package's ``block_until_ready``
+does, and reads the step's overflow counters.
+
+Spans (utils/profiling.py:span; no-ops unless a profiler is on) name the
+parts of a frame on the profiler's clock, the same in
+parallel/streams.py: ``pipeline.frame`` around each frame and under it
+``pipeline.fetch`` (the frame's arrays from their sources),
+``pipeline.preprocess``, ``pipeline.step`` (frame 0's init, else the
+step), ``pipeline.gt_binding`` (enqueued), ``pipeline.read`` (each host
+read), ``pipeline.sync`` and ``pipeline.observe``; the compiled steps'
+calls add ``graph.load``, ``graph.run`` and ``graph.copy_out``
+(core/compiled.py).
 
 The loop runs what the JAX package jits as compiled steps (core/
 compiled.py): ``preprocess_frame`` and ``track_step`` (make_jit_step's,
@@ -66,6 +78,7 @@ from super_tpu_torch.render.splat import render_zbuffer
 from super_tpu_torch.utils import evaluation
 from super_tpu_torch.utils.checkpoint import save_state
 from super_tpu_torch.utils.colormap import magma
+from super_tpu_torch.utils.profiling import span
 from super_tpu_torch.utils.viz import TrackingLogger
 
 OVERFLOW_COUNTERS = ("tuple_overflow", "pair_overflow", "proj_overflow",
@@ -140,79 +153,101 @@ class SuPerPipeline:
         if verbose:
             print(f"step loop: {self.loop}"
                   + (f" ({self.loop_reason})" if self.loop_reason else ""))
+        cuda = dev.type == "cuda"
         for t in range(len(colors)):
-            tic = _time.perf_counter()
-            color = _chw(colors[t])
-            seg = None if segs is None else np.asarray(segs[t])
-            seg_conf = None if seg_confs is None else np.asarray(seg_confs[t])
-            if depths is not None:
-                depth = np.asarray(depths[t])
-            else:
-                from super_tpu_torch.factory import predict_frame_inputs
-
-                pred = predict_frame_inputs(
-                    cfg, models, color, right_color_chw=None
-                    if right_colors is None else _chw(right_colors[t]))
-                depth = pred["depth"]
-                if "seg" in pred and seg is None:
-                    seg, seg_conf = pred["seg"], pred["seg_conf"]
-            if self._preprocess is not None:
-                frame = self._preprocess(self.intr, depth, color, float(t),
-                                         seg, seg_conf)
-            else:
-                frame = preprocess_frame(cfg, self.intr, depth, color,
-                                         float(t), seg=seg,
-                                         seg_conf=seg_conf, device=dev)
-            outs = None
-            if self.state is None:
-                self.state = init_tracker(cfg, frame)
-            else:
-                # The flow's source is the previous frame (the frame's own
-                # colour, zero flow, when the state came from elsewhere).
-                prev = (frame.color_image if self._prev_color is None
-                        else self._prev_color)
-                if self._step is None:
-                    self.state, outs = track_step(
-                        cfg, self.intr, self.state, frame, models=models,
-                        prev_color=prev)
-                elif jit_step_takes_prev(cfg, models):
-                    self.state, outs = self._step(self.intr, self.state,
-                                                  frame, prev)
-                else:
-                    self.state, outs = self._step(self.intr, self.state,
-                                                  frame)
-            self._prev_color = frame.color_image
-            if gt_xy is not None:
-                self._eval_frame(t, frame, gt_xy[t], gt_valid[t])
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            self.frame_times.append(_time.perf_counter() - tic)
-            if outs is not None:
-                # One host fetch for all counters.
-                vals = torch.stack([getattr(outs, n).to(torch.int64)
-                                    for n in OVERFLOW_COUNTERS]).tolist()
-                for name, c in zip(OVERFLOW_COUNTERS, vals):
-                    if c > 0:
-                        self.overflow_totals[name] = \
-                            self.overflow_totals.get(name, 0) + c
-                        if verbose:
-                            print(f"frame {t}: capacity overflow {name}={c} "
-                                  f"(accuracy degraded; see StepOutputs)")
-            if verbose and t % 10 == 0:
-                n = int(self.state.surfels.num_active)
-                print(f"frame {t}: {n} surfels, "
-                      f"{self.frame_times[-1] * 1e3:.1f} ms")
-            observed = (self.logger is not None
-                        or self.checkpoint_dir is not None)
-            if observed and t % cfg.save_sample_freq == 0:
+            with span("pipeline.frame"):
                 tic = _time.perf_counter()
-                self._observe(t, frame, depth, outs)
-                self.observe_times.append(_time.perf_counter() - tic)
+                with span("pipeline.fetch"):
+                    # Colour first: a frame source may start the frame's
+                    # clock at it.
+                    color = _chw(colors[t])
+                    seg = None if segs is None else np.asarray(segs[t])
+                    seg_conf = None if seg_confs is None \
+                        else np.asarray(seg_confs[t])
+                    depth = None if depths is None \
+                        else np.asarray(depths[t])
+                    gt = None if gt_xy is None else (gt_xy[t], gt_valid[t])
+                if depth is None:
+                    from super_tpu_torch.factory import predict_frame_inputs
+
+                    with span("pipeline.perception"):
+                        pred = predict_frame_inputs(
+                            cfg, models, color, right_color_chw=None
+                            if right_colors is None
+                            else _chw(right_colors[t]))
+                    depth = pred["depth"]
+                    if "seg" in pred and seg is None:
+                        seg, seg_conf = pred["seg"], pred["seg_conf"]
+                with span("pipeline.preprocess"):
+                    if self._preprocess is not None:
+                        frame = self._preprocess(self.intr, depth, color,
+                                                 float(t), seg, seg_conf)
+                    else:
+                        frame = preprocess_frame(
+                            cfg, self.intr, depth, color, float(t), seg=seg,
+                            seg_conf=seg_conf, device=dev)
+                with span("pipeline.step"):
+                    outs = self._track(frame, models)
+                self._prev_color = frame.color_image
+                if gt is not None:
+                    self._eval_frame(t, frame, *gt)
+                with span("pipeline.sync"):
+                    if cuda:
+                        torch.cuda.synchronize(dev)
+                self.frame_times.append(_time.perf_counter() - tic)
+                if outs is not None:
+                    self._count_overflow(t, outs, verbose)
+                if verbose and t % 10 == 0:
+                    n = int(self.state.surfels.num_active)
+                    print(f"frame {t}: {n} surfels, "
+                          f"{self.frame_times[-1] * 1e3:.1f} ms")
+                observed = (self.logger is not None
+                            or self.checkpoint_dir is not None)
+                if observed and t % cfg.save_sample_freq == 0:
+                    with span("pipeline.observe"):
+                        tic = _time.perf_counter()
+                        self._observe(t, frame, depth, outs)
+                        self.observe_times.append(
+                            _time.perf_counter() - tic)
         if self.logger is not None and self.errors:
             self.logger.log_trackpts_plots(max(self.errors), self.errors,
                                            self.track_results,
                                            np.asarray(gt_xy))
         return self.summary()
+
+    def _track(self, frame, models):
+        """Frame 0 initialises the tracker; a later frame runs the step.
+        Returns the step's outputs (None at frame 0)."""
+        if self.state is None:
+            self.state = init_tracker(self.cfg, frame)
+            return None
+        # The flow's source is the previous frame (the frame's own colour,
+        # zero flow, when the state came from elsewhere).
+        prev = (frame.color_image if self._prev_color is None
+                else self._prev_color)
+        if self._step is None:
+            self.state, outs = track_step(self.cfg, self.intr, self.state,
+                                          frame, models=models,
+                                          prev_color=prev)
+        elif jit_step_takes_prev(self.cfg, models):
+            self.state, outs = self._step(self.intr, self.state, frame,
+                                          prev)
+        else:
+            self.state, outs = self._step(self.intr, self.state, frame)
+        return outs
+
+    def _count_overflow(self, t, outs, verbose):
+        """The step's overflow counters, one host read for all."""
+        with span("pipeline.read"):
+            vals = torch.stack([getattr(outs, n).to(torch.int64)
+                                for n in OVERFLOW_COUNTERS]).tolist()
+        for name, c in zip(OVERFLOW_COUNTERS, vals):
+            if c > 0:
+                self.overflow_totals[name] = \
+                    self.overflow_totals.get(name, 0) + c
+                if verbose:
+                    print(f"frame {t}: capacity overflow {name}={c} "
+                          f"(accuracy degraded; see StepOutputs)")
 
     def _choose_loop(self, models):
         """The compiled steps (make_jit_step with ``models``) unless
@@ -267,26 +302,32 @@ class SuPerPipeline:
             save_state(self.checkpoint_dir, self.state, step=t)
 
     def _eval_frame(self, t, frame, gt_xy_t, gt_valid_t):
+        """Bind the GT points to surfels (enqueued on the device), then read
+        the tracked points to the host, where the frame waits for the
+        card, and keep their errors."""
         dev = self.device
-        gt_xy_t = np.asarray(gt_xy_t)
-        gt_valid_t = np.asarray(gt_valid_t)
-        track = assign_track_points(
-            self.cfg, self.state.surfels, frame, self.state.track,
-            torch.as_tensor(gt_xy_t.astype(np.int32), device=dev),
-            torch.as_tensor(gt_valid_t, device=dev))
-        track = record_track_coords(self.state.surfels, track)
-        self.state = self.state._replace(track=track)
-        coord_valid = track.coord_valid.cpu().numpy()
-        est = np.concatenate(
-            [track.coords.cpu().numpy(),
-             coord_valid.astype(np.float32)[:, None]], axis=1)
-        gt = np.concatenate(
-            [gt_xy_t, gt_valid_t.astype(np.float32)[:, None]], axis=1)
-        self.track_results[t] = est
-        # Errors only count points that are both GT-visible and tracked.
-        err = evaluation.reprojection_errors(gt, est)
-        err[~coord_valid] = -1.0
-        self.errors[t] = err
+        with span("pipeline.gt_binding"):
+            gt_xy_t = np.asarray(gt_xy_t)
+            gt_valid_t = np.asarray(gt_valid_t)
+            track = assign_track_points(
+                self.cfg, self.state.surfels, frame, self.state.track,
+                torch.as_tensor(gt_xy_t.astype(np.int32), device=dev),
+                torch.as_tensor(gt_valid_t, device=dev))
+            track = record_track_coords(self.state.surfels, track)
+            self.state = self.state._replace(track=track)
+        with span("pipeline.read"):
+            coord_valid = track.coord_valid.cpu().numpy()
+            est = np.concatenate(
+                [track.coords.cpu().numpy(),
+                 coord_valid.astype(np.float32)[:, None]], axis=1)
+            gt = np.concatenate(
+                [gt_xy_t, gt_valid_t.astype(np.float32)[:, None]], axis=1)
+            self.track_results[t] = est
+            # Errors only count points that are both GT-visible and
+            # tracked.
+            err = evaluation.reprojection_errors(gt, est)
+            err[~coord_valid] = -1.0
+            self.errors[t] = err
 
     def summary(self) -> Dict[str, float]:
         out = evaluation.summarize(self.errors, edge_ids=self.cfg.edge_ids)

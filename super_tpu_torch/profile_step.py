@@ -1,7 +1,7 @@
 """Where the time of a path of the tracking step goes, on one CUDA card.
 
     python -m super_tpu_torch.profile_step [--workload lm] [--frames 4]
-                                           [--seed 0]
+                                           [--seed 0] [--captured]
 
 Runs a path of the tracking step at 480 x 640 (config.workload_config):
 ``lm``, the headline (mesh step 30, J = 384, pair-sparse CG by K1);
@@ -31,6 +31,23 @@ from its own, so those kernels lie in no range and are counted as
 ``device_ms_in_no_range``), the kernels' device ms and launches per frame
 and busy share of the traced window, and the kernels with the most device
 time.
+
+With ``--captured`` it profiles the step as the pipelines run it: the
+path's ``make_jit_step`` captured as a CUDA graph, built with
+``stage_times`` (timing events around each ``step.*`` stage, nodes of the
+graph; core/compiled.py:CapturedStep.stage_ms), beside the same path
+captured without them.  Frame 0 initialises, frame 1 warms up and
+captures each; then both replay ``2 * --frames`` frames in turns, once to
+settle the card and once each timed on the host clock around a
+synchronised replay and between CUDA events; then the timed step replays
+the last ``--frames`` of them under ``torch.profiler``.  It prints each
+stage's device ms a frame (their sum beside the whole body's and the
+traced replays' device busy ms), the replay's ms between CUDA events with
+the stage events and without, and of the traced replays the kernels,
+device busy ms, the span from the first kernel's start to the last's end
+(which the stage events, read in the same replays, sum to), and the top
+kernels.  Tracing slows a replay (the profiler's per-kernel records); the
+untraced stage times are the step's.
 """
 
 from __future__ import annotations
@@ -48,14 +65,17 @@ import warnings
 import numpy as np
 import torch
 from torch.autograd import DeviceType
-from torch.profiler import record_function
 
 import super_tpu_torch  # noqa: F401  (TF32 off)
 from super_tpu_torch.config import WORKLOADS, workload_config
 from super_tpu_torch.core.preprocess import preprocess_frame
-from super_tpu_torch.core.tracker import init_tracker, track_step
+from super_tpu_torch.core.tracker import (
+    init_tracker,
+    make_jit_step,
+    track_step,
+)
 from super_tpu_torch.data.synthetic import default_intrinsics, generate
-from super_tpu_torch.utils.profiling import kernel_spans
+from super_tpu_torch.utils.profiling import kernel_spans, span
 
 RANGES = ("perception.depth", "step.preprocess", "step.prepare_lm",
           "step.lm_solve", "step.graph_fit", "step.apply_deformation",
@@ -91,11 +111,137 @@ def _count_syncs(step, state):
     return state, sites
 
 
+def _union_us(spans) -> float:
+    """Length of the union of (start, end) spans."""
+    total, end = 0.0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total
+
+
+def _top(kernels, frames, count=15):
+    by_name = collections.defaultdict(lambda: [0, 0.0])
+    for k0, k1, kname in kernels:
+        by_name[kname][0] += 1
+        by_name[kname][1] += k1 - k0
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:count]
+    return [dict(name=kname[:90], calls_per_frame=c / frames,
+                 device_ms_per_frame=t / 1e3 / frames)
+            for kname, (c, t) in top]
+
+
+def _replay(step, intr, frame, events=None):
+    """Load ``frame`` (the state stays in the step's buffers, carried by
+    the last replay), then one synchronised replay, between ``events``
+    where given: (host ms of the replay, its ms between the events)."""
+    step.load(intr, step.buffers[1], frame)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with span("profile.replay"):
+        if events:
+            events[0].record()
+        step.replay()
+        if events:
+            events[1].record()
+        torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    return host_ms, events[0].elapsed_time(events[1]) if events else None
+
+
+def _stages(step):
+    return dict(step.stage_ms(), body=step.body_ms())
+
+
+def _mean_stages(rows):
+    mean = {k: statistics.fmean(r[k] for r in rows) for k in rows[0]}
+    body = mean.pop("body")
+    return mean, sum(mean.values()), body
+
+
+def captured(cfg, intr, frame_of, frames: int) -> dict:
+    """``--captured``: the captured step's stage times, trace and the stage
+    events' cost (the module docstring)."""
+    steps = {"timed": make_jit_step(cfg, stage_times=True),
+             "plain": make_jit_step(cfg)}
+    state = init_tracker(cfg, frame_of(0))
+    for step in steps.values():
+        step(intr, state, frame_of(1))                    # warm-up, capture
+    run = range(3, 3 + 2 * frames)
+    events = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+    host = {name: [] for name in steps}
+    replay = {name: [] for name in steps}
+    rows = []
+    # Replays of both steps in turns: a round to settle the card's clocks
+    # and caches, then a round between CUDA events (the stage events'
+    # cost), the timed step's stages read after each.
+    for timing in (False, True):
+        for t in run:
+            order = list(steps.items())
+            for name, step in (order if t % 2 else order[::-1]):
+                host_ms, ms = _replay(step, intr, frame_of(t),
+                                      events if timing else None)
+                if timing:
+                    host[name].append(host_ms)
+                    replay[name].append(ms)
+                    if name == "timed":
+                        rows.append(_stages(step))
+    step = steps["timed"]
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    traced_rows = []
+    with torch.profiler.profile(activities=acts) as prof:
+        for t in run[frames:]:
+            _replay(step, intr, frame_of(t))
+            traced_rows.append(_stages(step))
+    replays = sorted((e.time_range.start, e.time_range.end)
+                     for e in prof.events()
+                     if e.device_type == DeviceType.CPU
+                     and e.name == "profile.replay")
+    kernels = [k for k in kernel_spans(prof)
+               if any(a <= k[0] <= b for a, b in replays)]
+    busy_ms = _union_us([(k0, k1) for k0, k1, _ in kernels]) / 1e3 / frames
+    span_ms = statistics.fmean(
+        max(k1 for k0, k1, _ in kernels if a <= k0 <= b)
+        - min(k0 for k0, _, _ in kernels if a <= k0 <= b)
+        for a, b in replays) / 1e3
+
+    stages, stage_sum, body = _mean_stages(rows)
+    t_stages, t_sum, t_body = _mean_stages(traced_rows)
+    timed_ms = statistics.median(replay["timed"])
+    plain_ms = statistics.median(replay["plain"])
+    return dict(
+        captured=True,
+        host_ms_per_replay=host["timed"],
+        host_median_ms=statistics.median(host["timed"]),
+        stage_ms=stages, stage_sum_ms=stage_sum, body_ms=body,
+        stage_sum_over_busy=stage_sum / busy_ms,
+        replay_ms_with_stage_events=timed_ms, replay_ms_without=plain_ms,
+        stage_events_cost=timed_ms / plain_ms - 1,
+        replay_ms_each=replay,
+        replay_device_busy_ms=busy_ms, replay_device_span_ms=span_ms,
+        kernels_per_frame=len(kernels) / frames,
+        traced_stage_ms=t_stages, traced_stage_sum_ms=t_sum,
+        traced_body_ms=t_body,
+        traced_stage_sum_over_span=t_sum / span_ms,
+        traced_stage_ms_per_frame=traced_rows,
+        top_kernels=_top(kernels, frames))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--workload", choices=WORKLOADS, default="lm")
     ap.add_argument("--frames", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--captured", action="store_true",
+                    help="profile the captured step (make_jit_step with "
+                    "stage_times): stage device ms, trace, events' cost")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: no CUDA device")
@@ -125,12 +271,23 @@ def main():
         colors_dev = torch.as_tensor(colors, device=dev)
 
         def frame_of(t):
-            with record_function("perception.depth"):
+            with span("perception.depth"):
                 depth = predict_frame_inputs(cfg, models,
                                              colors_dev[t])["depth"]
-            with record_function("step.preprocess"):
+            with span("step.preprocess"):
                 return preprocess_frame(cfg, intr, depth, colors_dev[t],
                                         float(t), device=dev)
+
+    head = dict(card=card, workload=args.workload,
+                linear_solver=cfg.solver.linear_solver,
+                optimizer=(None if cfg.solver.use_derived_gradient
+                           else cfg.solver.optimizer),
+                node_capacity=cfg.capacity.node_capacity,
+                frames=args.frames, seed=args.seed)
+    if args.captured:
+        print(json.dumps(dict(head, **captured(cfg, intr, frame_of,
+                                               args.frames))))
+        return
 
     def step(state, t):
         return track_step(cfg, intr, state, frame_of(t))
@@ -187,10 +344,6 @@ def main():
             host_ms=sum(e.cpu_time_total for e in host) / per,
             device_ms=dev_ms / per,
             kernels_per_frame=n_kernels / args.frames)
-    by_name = collections.defaultdict(lambda: [0, 0.0])
-    for k0, k1, kname in kernels:
-        by_name[kname][0] += 1
-        by_name[kname][1] += k1 - k0
     device_ms = sum(k1 - k0 for k0, k1, _ in kernels) / 1e3
     merged = []                       # the ranges' union, disjoint spans
     for a, b in sorted(spans):
@@ -204,14 +357,8 @@ def main():
         i = bisect.bisect_right(merged_starts, k0) - 1
         if i < 0 or k1 > merged[i][1]:
             no_range_us += k1 - k0
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
     print(json.dumps(dict(
-        card=card, workload=args.workload,
-        linear_solver=cfg.solver.linear_solver,
-        optimizer=(None if cfg.solver.use_derived_gradient
-                   else cfg.solver.optimizer),
-        node_capacity=cfg.capacity.node_capacity, frames=args.frames,
-        seed=args.seed,
+        head,
         host_syncs_per_frame=len(syncs), host_sync_sites=syncs[:10],
         untraced_ms_per_frame=untraced,
         untraced_median_ms=statistics.median(untraced),
@@ -221,9 +368,7 @@ def main():
         device_busy_share_traced=device_ms / window_ms,
         device_ms_in_no_range=no_range_us / per,
         ranges=ranges,
-        top_kernels=[dict(name=kname[:90], calls_per_frame=c / args.frames,
-                          device_ms_per_frame=t / per)
-                     for kname, (c, t) in top])))
+        top_kernels=_top(kernels, args.frames))))
 
 
 if __name__ == "__main__":

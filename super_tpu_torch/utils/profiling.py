@@ -10,6 +10,13 @@ super_tpu/utils/profiling.py).
 - :func:`loop_time`: ms an iteration over back-to-back calls chained
   through an accumulator, between CUDA events.
 - :func:`kernel_spans`: the device work of a profiled window.
+- :func:`span`: the port's one span mechanism.  Inside a
+  ``torch.profiler`` window it opens a ``record_function`` range, so the
+  program's spans share one clock with the device's timeline; outside one
+  it is a flag check and a shared no-op context.  While a step captured
+  with stage timing (:class:`StageTimer`, core/compiled.py) runs, the
+  step's top-level stages (:data:`STAGES`) also record a pair of timing
+  events each, nodes of the CUDA graph when captured.
 
 What this does not amortise: the JAX ``loop_time`` runs its iterations in
 one compiled ``fori_loop``, so dispatch is paid once.  Here each
@@ -27,6 +34,82 @@ from typing import Callable
 
 import torch
 from torch.autograd import DeviceType
+from torch.autograd import profiler as _autograd_profiler
+
+# The step's top-level stages (core/tracker.py:track_step), timed by a
+# StageTimer: the LM path's, or the autograd fit's step.graph_fit.
+STAGES = ("step.prepare_lm", "step.lm_solve", "step.graph_fit",
+          "step.apply_deformation", "step.fuse_frame", "step.prune")
+BODY = "body"                  # a StageTimer's bracket of the whole step
+
+_OFF = contextlib.nullcontext()
+_timer = None                  # the StageTimer of the step being run
+
+
+def profiler_enabled() -> bool:
+    """Whether a ``torch.profiler`` (or autograd profiler) window is open."""
+    return _autograd_profiler._is_profiler_enabled
+
+
+def span(name: str):
+    """A context naming a stretch of the program: a ``record_function``
+    range while a profiler is on, else a shared no-op context (no
+    ``RecordFunction`` is made); a stage of :data:`STAGES` is also timed
+    while a :class:`StageTimer` is active (:func:`stage_timing`)."""
+    if _timer is not None and name in STAGES:
+        return _timer.stage(name)
+    if _autograd_profiler._is_profiler_enabled:
+        return _autograd_profiler.record_function(name)
+    return _OFF
+
+
+class StageTimer:
+    """Times the stages of one run of a step: on the card a pair of timing
+    events around each (``external``, so that a capture records them as
+    event nodes of its graph and every replay writes them again), on the
+    CPU the host clock.  A stage met more than once in a run (the streams
+    of a batched step) sums.  Read :meth:`ms` after the run has finished
+    on the card (the caller's synchronisation)."""
+
+    def __init__(self, cuda: bool):
+        self.cuda = cuda
+        self.marks = []            # (name, start, end)
+
+    def _stamp(self):
+        if not self.cuda:
+            return time.perf_counter()
+        event = torch.cuda.Event(enable_timing=True, external=True)
+        event.record()
+        return event
+
+    @contextlib.contextmanager
+    def stage(self, name: str):
+        start = self._stamp()
+        if profiler_enabled():
+            with _autograd_profiler.record_function(name):
+                yield
+        else:
+            yield
+        self.marks.append((name, start, self._stamp()))
+
+    def ms(self) -> dict:
+        """{stage: ms} of the run, :data:`BODY` the whole step's."""
+        out = {}
+        for name, a, b in self.marks:
+            d = a.elapsed_time(b) if self.cuda else (b - a) * 1e3
+            out[name] = out.get(name, 0.0) + d
+        return out
+
+
+@contextlib.contextmanager
+def stage_timing(timer: StageTimer):
+    """Time the stages met in the block with ``timer``."""
+    global _timer
+    prev, _timer = _timer, timer
+    try:
+        yield timer
+    finally:
+        _timer = prev
 
 
 def kernel_spans(prof):
