@@ -7,10 +7,11 @@
 For each seed, one run of the configuration under the traffic mix, found
 by their names as ``benchmark.run`` finds a cell's, as it makes it (a short
 window at the cell's own load, every checked frame compared), in one
-process: the program's numbers against the reference (the lower
-readings) and the control's, the reference computed with its map and
-frames stored in bfloat16 put in the program's place (the upper
-readings), with each checked frame's counts and quantiles (``diag``).
+process: the program's numbers against the reference that the
+configuration names (the lower readings) and the control's, that
+reference's ``CONTROL`` (computed with its map and frames stored in
+bfloat16) put in the program's place (the upper readings), with each
+checked frame's counts and quantiles (``diag``).
 Prints a JSON line a seed and writes them to ``--out``.  Not run by the
 benchmark's own runs.
 """
@@ -48,7 +49,9 @@ def main(argv=None) -> int:
                 "control": res["control"],
                 "checked_frames": res["checked_frames"],
                 "attempted": res["attempted"], "failed": res["failed"],
-                "overflow": res["overflow"], "diag": res["diag"]}
+                "overflow": res["overflow"],
+                "memory_peak_bytes": res["device"]["memory_peak_bytes"],
+                "diag": res["diag"]}
         print(json.dumps(line), flush=True)
         lines.append(line)
     if args.out:

@@ -1,5 +1,6 @@
 """The comparison that decides ``correct``: the program's own outputs of the
-window's frames against the plain reference (benchmark/reference).
+window's frames against the plain reference that the configuration names
+(benchmark/reference).
 
 The tracker carries its state from frame to frame, and a frame's solve is
 chaotic at rounding size over a clip, so the reference follows the program
@@ -49,8 +50,6 @@ from __future__ import annotations
 import math
 
 import torch
-
-from benchmark.reference import tracker as R
 
 NUMBERS = ("prep_points_um", "prep_normals", "nodes_um", "slots_off_pct",
            "new_slots_off_pct", "surfels_um", "weights", "track_px")
@@ -187,26 +186,29 @@ def state_dict(state) -> dict:
                                                      "track")}
 
 
-def reference_frame(rcfg, intr, raw: dict, prog_prev, prec=R.REF):
-    """The reference's outputs for one frame from the raw inputs ``raw``
-    (depth, color, gt_xy, gt_valid, time) and the program's state before
-    it (None at the start): (frame, surfels, graph, track, the slots that
-    the frame's new surfels took)."""
-    rf = R.preprocess(rcfg, intr, raw["depth"], raw["color"], raw["time"],
-                      prec=prec)
+def reference_frame(ref, rcfg, intr, raw: dict, prog_prev, prec=None):
+    """The outputs of the reference module ``ref`` (benchmark/reference,
+    the configuration's: ``spec.load_reference``) for one frame, from the
+    raw inputs ``raw`` (depth, color, gt_xy, gt_valid, time) and the
+    program's state before it (None at the start), in ``ref.REF`` unless
+    ``prec`` is given: (frame, surfels, graph, track, the slots that the
+    frame's new surfels took)."""
+    prec = ref.REF if prec is None else prec
+    rf = ref.preprocess(rcfg, intr, raw["depth"], raw["color"],
+                        raw["time"], prec=prec)
     if prog_prev is None:
-        sf, graph = R.init(rcfg, rf, prec)
+        sf, graph = ref.init(rcfg, rf, prec)
         p = raw["gt_xy"].shape[0]
         track = dict(track_id=torch.full((p,), -1, dtype=torch.long,
                                          device=rf["points"].device))
         added = torch.nonzero(sf["active"])[:, 0]
     else:
-        sf, graph, track, added = R.step(
-            rcfg, R.fields(prog_prev.surfels, prec),
-            R.fields(prog_prev.graph, prec),
-            R.fields(prog_prev.track, prec), rf, prec)
-    track = R.bind_and_read(rcfg, sf, rf, track, raw["gt_xy"],
-                            raw["gt_valid"])
+        sf, graph, track, added = ref.step(
+            rcfg, ref.fields(prog_prev.surfels, prec),
+            ref.fields(prog_prev.graph, prec),
+            ref.fields(prog_prev.track, prec), rf, prec)
+    track = ref.bind_and_read(rcfg, sf, rf, track, raw["gt_xy"],
+                              raw["gt_valid"])
     return rf, sf, graph, track, added
 
 

@@ -13,6 +13,13 @@ The configuration's one precision step below float32 is kept: with
 one set of anchors) is rounded to bfloat16 before the tuples are summed,
 as the configuration states.
 
+The data term is point-to-plane against the association made once a frame
+at the identity warp (``solver.association`` "per_frame"):
+:class:`LMProblem` is what the deferred LM schedule (:func:`lm_solve`)
+solves, and a module with another data term passes its subclass to
+:func:`step` (benchmark/reference/moving.py).  :func:`covers` lists what
+the reference does not cover.
+
 A :class:`Prec` says how the reference computes: ``dtype``, and ``store``,
 applied to every floating value a stage hands on (the identity for the
 reference; bfloat16 rounding for the control, which stands in for a port
@@ -46,6 +53,41 @@ REF = Prec()
 
 
 CONTROL = Prec(dtype=torch.float32, store=bf16_store)
+
+
+def covers(cfg: dict, problem=None) -> list:
+    """The reasons this reference cannot check ``cfg`` (a configuration's
+    ``config``), each naming its keys: what the stages' NotImplementedErrors
+    refuse; empty when it can.  ``problem``, the LM problem class that
+    :func:`step` is given (default :class:`LMProblem`), states the
+    association it takes."""
+    problem = problem or LMProblem
+    sol = cfg["solver"]
+    why = []
+    if cfg["data"] != "superv1":
+        why.append("data: the reference covers the superv1 rules")
+    if not cfg["disable_ssim_conf"]:
+        why.append("disable_ssim_conf: the reference has no SSIM confidence")
+    if cfg["load_seg"] or cfg["seg_model"] is not None:
+        why.append("load_seg, seg_model: the reference has no class maps")
+    if cfg["method"] != "super":
+        why.append("method: the reference covers SuPer's weights")
+    if not sol["use_derived_gradient"]:
+        why.append("solver.use_derived_gradient: the reference covers the "
+                   "LM solve")
+    if sol["linear_solver"] != "pairs_fused":
+        why.append("solver.linear_solver: the reference covers K1's solve, "
+                   "pairs_fused")
+    if sol["association"] != problem.association:
+        why.append(f"solver.association: {problem.__name__} takes "
+                   f"{problem.association}")
+    if sol["lm_schedule"] != "deferred":
+        why.append("solver.lm_schedule: the reference covers the deferred "
+                   "schedule")
+    if sol["lm_hypotheses"] != 1:
+        why.append("solver.lm_hypotheses: the reference covers one "
+                   "hypothesis")
+    return why
 
 
 def fields(nt, prec: Prec) -> dict:
@@ -354,9 +396,20 @@ def warp_points(points, gpts, anchors, wts, beta):
 
 class LMProblem:
     """The LM data, ARAP and rotation terms of one frame, against the
-    association made once at the identity warp."""
+    association made once at the identity warp.
+
+    A subclass with another data term overrides ``association`` (the
+    configuration's ``solver.association`` it takes), :meth:`associate`
+    and :meth:`data_residual`; the schedule (:func:`lm_solve`) takes the
+    class."""
+
+    association = "per_frame"
 
     def __init__(self, cfg: dict, sf: dict, graph: dict, frame: dict):
+        if cfg["solver"]["association"] != self.association:
+            raise NotImplementedError(
+                f"{type(self).__name__} takes the {self.association} "
+                "association")
         self.cfg = cfg
         self.j = graph["points"].shape[0]
         act = sf["active"]
@@ -365,10 +418,7 @@ class LMProblem:
         self.w = sf["knn_w"][:, act]
         self.gpts = graph["points"]
         self.gact = graph["active"]
-        u, v = project(self.pts, cfg["_intr"])
-        _, inframe = pixel_of(u, v, cfg["height"], cfg["width"])
-        o, n, ok = sample_target(cfg, frame, u, v)
-        self.o, self.n, self.mask = o, n, ok & inframe
+        self.associate(frame)
         nb = graph["knn_idx"].long()
         self.nb = nb
         self.pair = self.gact[:, None] & self.gact[nb]
@@ -387,7 +437,18 @@ class LMProblem:
         self.wrot = losses["mesh_rot_weight"]
         self.bf16_sums = cfg["solver"]["gram_sum_dtype"] == "bf16"
 
+    def associate(self, frame: dict):
+        """The target of each surfel: the frame sampled at its projection
+        at the identity warp."""
+        cfg = self.cfg
+        u, v = project(self.pts, cfg["_intr"])
+        _, inframe = pixel_of(u, v, cfg["height"], cfg["width"])
+        o, n, ok = sample_target(cfg, frame, u, v)
+        self.o, self.n, self.mask = o, n, ok & inframe
+
     def data_residual(self, bk):
+        """The point-plane residuals at the anchors' parameters ``bk`` (k, 7,
+        N)."""
         tp = warp_points(self.pts, self.gpts, self.anchors, self.w, bk)
         r = self.wpp * torch.sum(self.n * (tp - self.o), 0)
         return torch.where(self.mask, r, 0.0)
@@ -510,20 +571,21 @@ def block_jacobi_cg(hm, rhs, u, x0, iterations: int):
     return x
 
 
-def lm_solve(cfg: dict, sf: dict, graph: dict, frame: dict):
+def lm_solve(cfg: dict, sf: dict, graph: dict, frame: dict,
+             problem=LMProblem):
     """The deferred LM schedule: num_iterations trips, each assembling the
-    normal equations at the candidate (trip 0 at the identity, never
-    judged), accepting it if its cost beats the best, and solving the
-    damped system from the last accepted equations (warm-started after an
-    accept, cold after a reject); the last candidate judged by its cost.
-    Returns the (J, 7) warp parameters [q, b] per node."""
+    normal equations of ``problem`` (an :class:`LMProblem` class) at the
+    candidate (trip 0 at the identity, never judged), accepting it if its
+    cost beats the best, and solving the damped system from the last
+    accepted equations (warm-started after an accept, cold after a
+    reject); the last candidate judged by its cost.  Returns the (J, 7)
+    warp parameters [q, b] per node."""
     sol = cfg["solver"]
     if sol["linear_solver"] != "pairs_fused" or \
-            sol["association"] != "per_frame" or \
             sol["lm_schedule"] != "deferred" or sol["lm_hypotheses"] != 1:
-        raise NotImplementedError("the reference covers the headline's "
-                                  "per-frame deferred LM with K1's solve")
-    prob = LMProblem(cfg, sf, graph, frame)
+        raise NotImplementedError("the reference covers the deferred LM "
+                                  "with K1's solve and one hypothesis")
+    prob = problem(cfg, sf, graph, frame)
     j = prob.j
     dt, dev = sf["points"].dtype, sf["points"].device
     v = sol["lm_damping_factor"]
@@ -797,13 +859,13 @@ def bind_and_read(cfg: dict, sf: dict, frame: dict, track: dict, gt_xy,
 
 
 def step(cfg: dict, sf: dict, graph: dict, track: dict, frame: dict,
-         prec: Prec = REF):
-    """One tracked frame from the state before it: the LM warp solve, the
-    warp, fusion and pruning.  Returns (surfels, graph, track, the slots
-    that new surfels took)."""
+         prec: Prec = REF, problem=LMProblem):
+    """One tracked frame from the state before it: the LM warp solve of
+    ``problem``, the warp, fusion and pruning.  Returns (surfels, graph,
+    track, the slots that new surfels took)."""
     if not cfg["solver"]["use_derived_gradient"]:
         raise NotImplementedError("the reference covers the LM solve")
-    beta = lm_solve(cfg, sf, graph, frame)
+    beta = lm_solve(cfg, sf, graph, frame, problem)
     sf, graph = apply_warp(sf, graph, prec.store(beta))
     sf, graph = _store(sf, prec), _store(graph, prec)
     sf, remap, added = fuse(cfg, sf, graph, frame, prec)

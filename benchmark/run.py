@@ -8,7 +8,8 @@ stages: read the cell's configuration and traffic (found by their names in
 ``BENCHMARK.json``), make the seeded clip on the card and take it to host
 numpy once, build the kernels, warm up (the pipeline's first frames: init,
 capture, replays), measure whole frames for ``--seconds``, then compare the
-window's own outputs with the plain reference and print one JSON line:
+window's own outputs with the plain reference that the configuration
+names and print one JSON line:
 ``correct``, ``attempted``, ``failed``, ``metrics`` (the end-to-end
 metrics, or with ``--trace 1`` the per-layer ones, read over a steady
 stretch of the window from ``torch.profiler``), ``device``, with
@@ -56,12 +57,18 @@ def run_cell(conf: dict, traffic: dict, seed: int, seconds: float,
     ``control`` (benchmark/calibrate.py) also compares the control, the
     reference computed with its state in bfloat16, with the reference, under
     ``control``, and gives each checked frame's distributions under
-    ``diag``."""
+    ``diag``.  The reference is the one the configuration names; a run
+    stops before the clip is built where it is missing or does not cover
+    the configuration."""
+    R = spec.load_reference(conf)
+    why = R.covers(conf["config"])
+    if why:
+        raise SystemExit(f"the reference {spec.reference_name(conf)} cannot "
+                         f"check this configuration: {'; '.join(why)}")
     import torch
 
     from benchmark import compare, drive, evaluation, roofline, stats
     from benchmark import trace as tr
-    from benchmark.reference import tracker as R
     from super_tpu_torch.config import SuPerConfig
     from super_tpu_torch.geometry.camera import Intrinsics
 
@@ -189,14 +196,14 @@ def run_cell(conf: dict, traffic: dict, seed: int, seconds: float,
                 drive.stream_state(k["prev"], s))
             after = k["after"] if streams == 1 else \
                 drive.stream_state(k["after"], s)
-            ref = compare.reference_frame(rcfg, intr_f, raw, prev)
+            ref = compare.reference_frame(R, rcfg, intr_f, raw, prev)
             prev_id = None if prev is None else prev.track.track_id
             rows.append(compare.frame_numbers(
                 k["frames"][s]._asdict(), compare.state_dict(after), *ref,
                 prev_id, diag=control))
             if control:
                 diags.append(dict(rows[-1].pop("diag"), frame=t, stream=s))
-                ctl = compare.reference_frame(rcfg, intr_f, raw, prev,
+                ctl = compare.reference_frame(R, rcfg, intr_f, raw, prev,
                                               R.CONTROL)
                 control_rows.append(compare.frame_numbers(
                     {"valid": ctl[0]["valid"], "points": ctl[0]["points"],

@@ -3,8 +3,10 @@
 The harness is driven by data: a cell names a configuration and a traffic
 mix, and each is found by its name alone, as ``configs/<name>.json`` and
 ``traffic/<name>.json`` beside this file; each per-layer metric is read by
-``metrics/<name>.py``.  A later change adds a cell or a metric by adding
-such files and entries, and edits none that exists.
+``metrics/<name>.py``; and a configuration names the plain reference that
+checks it, ``reference/<module>.py``.  A later change adds a cell, a
+metric or a reference by adding such files and entries, and edits none
+that exists.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.\-]{1,16}$")
+DEFAULT_REFERENCE = "tracker"
 
 
 def load_benchmark(path: Path = ROOT / "BENCHMARK.json") -> dict:
@@ -43,11 +46,36 @@ def metric_file(name: str) -> Path:
     return HERE / "metrics" / f"{name}.py"
 
 
+def reference_file(module: str) -> Path:
+    return HERE / "reference" / f"{module}.py"
+
+
 def load_config(name: str) -> dict:
     """The configuration's file: ``config`` (the port's SuPerConfig as a
-    dict, as it is run), ``source``, ``assumed``, ``reduced`` and
-    ``limits`` (the comparison's limit on each number)."""
+    dict, as it is run), ``source``, ``assumed``, ``reduced``, ``limits``
+    (the comparison's limit on each number) and, optionally,
+    ``reference`` (the module of its plain reference)."""
     return json.loads(config_file(name).read_text())
+
+
+def reference_name(conf: dict) -> str:
+    """The module of the plain reference that checks the configuration
+    ``conf``: its ``reference``, else :data:`DEFAULT_REFERENCE`."""
+    return conf.get("reference", DEFAULT_REFERENCE)
+
+
+def has_reference(name: str) -> bool:
+    return name.isidentifier() and reference_file(name).exists()
+
+
+def load_reference(conf: dict):
+    """The configuration's reference module, ``benchmark.reference.<name>``
+    (its interface: benchmark/reference/__init__.py)."""
+    name = reference_name(conf)
+    if not has_reference(name):
+        raise SystemExit(f"no reference module {name!r}: no "
+                         f"{reference_file(name)}")
+    return importlib.import_module(f"benchmark.reference.{name}")
 
 
 def load_traffic(name: str) -> dict:
@@ -92,6 +120,11 @@ def check_names(bench: dict) -> list:
         if (ROOT / c["file"]).resolve() != config_file(c["name"]):
             bad.append(f"config {c['name']} is not in "
                        f"{config_file(c['name'])}")
+        elif config_file(c["name"]).exists():
+            ref = reference_name(load_config(c["name"]))
+            if not has_reference(ref):
+                bad.append(f"config {c['name']} names reference {ref!r}, "
+                           f"which has no {reference_file(ref)}")
     for w in bench["workloads"]:
         if not traffic_file(w["traffic"]).exists():
             bad.append(f"no traffic file for {w['traffic']}")

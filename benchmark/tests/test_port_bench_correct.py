@@ -109,3 +109,31 @@ def _half_the_batch(pipe):
 def test_a_broken_timed_path_is_not_correct(streams, patch):
     res, _ = cell_run(streams, patch=patch)
     assert not res["correct"], res["check"]
+
+
+def moving_run(patch=None, control=False):
+    """The port's moving target (``association`` "per_iteration") at 48 x
+    64, checked by benchmark/reference/moving.py under super_lm's limits."""
+    torch.set_num_threads(2)
+    conf, traffic = tiny(1)
+    conf["config"]["solver"]["association"] = "per_iteration"
+    conf["reference"] = "moving"
+    return run.run_cell(conf, traffic, 2 ** 31 + 11, 0.01, False, "cpu",
+                        patch=patch, control=control), conf
+
+
+# The sound run of the moving target is not asserted correct: at this seed
+# it is not (PERF.md, "Open questions", 1): on the pixel lines its first
+# trip's rows follow float32 rounding that no float64 reference repeats.
+@pytest.mark.parametrize("broken", ["control", "state_unchanged"])
+def test_moving_target_broken_is_not_correct(broken):
+    if broken == "control":
+        res, conf = moving_run(control=True)
+        ok, lines = compare.verdict(
+            {k: float(v) for k, v in res["control"].items()},
+            conf["limits"])
+    else:
+        res, conf = moving_run(patch=_unchanged_state)
+        ok, lines = res["correct"], res["check"]
+    assert res["checked_frames"] == 3
+    assert not ok, lines

@@ -283,6 +283,171 @@ def test_files_are_found_by_name_alone(tmp_path, monkeypatch):
     assert spec.load_metric("z.m").read(None) == 7
 
 
+def _moving_config(conf: dict) -> dict:
+    conf = json.loads(json.dumps(conf))
+    conf["config"]["solver"]["association"] = "per_iteration"
+    return conf
+
+
+def test_a_configuration_names_its_reference():
+    from benchmark.reference import moving, tracker
+
+    assert spec.load_reference({}) is tracker
+    conf = spec.load_config("super_lm")
+    assert "reference" not in conf and spec.load_reference(conf) is tracker
+    assert spec.load_reference(dict(conf, reference="moving")) is moving
+    with pytest.raises(SystemExit, match="nosuch"):
+        spec.load_reference(dict(conf, reference="nosuch"))
+
+
+def test_a_missing_reference_is_reported(tmp_path, monkeypatch):
+    monkeypatch.setattr(spec, "HERE", tmp_path)
+    for sub in ("configs", "traffic", "reference"):
+        (tmp_path / sub).mkdir()
+    (tmp_path / "reference" / "tracker.py").write_text("")
+    (tmp_path / "traffic" / "t.json").write_text("{}")
+    (tmp_path / "configs" / "good.json").write_text("{}")
+    (tmp_path / "configs" / "bad.json").write_text(
+        '{"reference": "nosuch"}')
+    bench = {"configs": [{"name": n, "file": str(tmp_path / "configs" /
+                                                   f"{n}.json"),
+                          "reduced": []} for n in ("good", "bad")],
+             "workloads": [{"name": f"{n}.t", "config": n, "traffic": "t"}
+                           for n in ("good", "bad")],
+             "end_to_end": [], "per_layer": []}
+    bad = spec.check_names(bench)
+    assert len(bad) == 1 and "bad" in bad[0] and "nosuch" in bad[0], bad
+
+
+@pytest.mark.parametrize("case", ["no_module", "not_covered"])
+def test_a_run_stops_before_any_frame(case, monkeypatch):
+    from benchmark import drive, run
+
+    def no_clip(*args, **kwargs):
+        raise AssertionError("a clip was built")
+
+    monkeypatch.setattr(drive, "make_clips", no_clip)
+    conf = spec.load_config("super_lm")
+    conf, why = (dict(conf, reference="nosuch"), "nosuch") \
+        if case == "no_module" else \
+        (_moving_config(conf), "solver.association")
+    with pytest.raises(SystemExit, match=why):
+        run.run_cell(conf, spec.load_traffic("clip"), 1, 0.01, False, "cpu")
+
+
+def test_reference_frame_calls_the_module_it_is_given():
+    import types
+
+    from benchmark import compare
+
+    calls = []
+
+    def record(name, out):
+        def f(*args, **kwargs):
+            calls.append((name, args, kwargs))
+            return out
+        return f
+
+    frame = {"points": torch.zeros(3, 4)}
+    stub = types.SimpleNamespace(
+        REF="ref", CONTROL="control",
+        preprocess=record("preprocess", frame),
+        init=record("init", ({"active": torch.ones(2, dtype=torch.bool)},
+                             "graph")),
+        fields=record("fields", {}),
+        step=record("step", ("sf", "graph", "track", "added")),
+        bind_and_read=record("bind_and_read", "bound"))
+    prev = types.SimpleNamespace(surfels="s", graph="g", track="t")
+    raw = {"depth": None, "color": None, "gt_xy": torch.zeros(5, 2),
+           "gt_valid": None, "time": 3.0}
+    def precs():
+        return [(c[0], c[2].get("prec", c[1][-1])) for c in calls
+                if c[0] != "bind_and_read"]
+
+    out = compare.reference_frame(stub, {}, None, raw, prev)
+    assert out == (frame, "sf", "graph", "bound", "added")
+    assert precs() == [("preprocess", "ref"), ("fields", "ref"),
+                       ("fields", "ref"), ("fields", "ref"), ("step", "ref")]
+    calls.clear()
+    compare.reference_frame(stub, {}, None, raw, prev, stub.CONTROL)
+    assert {p for _, p in precs()} == {"control"}
+    calls.clear()
+    out = compare.reference_frame(stub, {}, None, raw, None)
+    assert [c[0] for c in calls] == ["preprocess", "init", "bind_and_read"]
+
+
+def test_covers_names_what_the_reference_refuses():
+    from benchmark.reference import moving, tracker
+
+    cfg = spec.load_config("super_lm")["config"]
+    moving_cfg = _moving_config({"config": cfg})["config"]
+    assert tracker.covers(cfg) == []
+    why = tracker.covers(moving_cfg)
+    assert len(why) == 1 and why[0].startswith("solver.association")
+    assert moving.covers(moving_cfg) == []
+    assert [w.split(":")[0] for w in moving.covers(cfg)] == \
+        ["solver.association"]
+    # Past the association, the moving target refuses what tracker does.
+    for key, value in [("data", "superv2"), ("disable_ssim_conf", False),
+                       ("load_seg", True), ("method", "semantic-super")]:
+        for c in (cfg, moving_cfg):
+            assert [w.split(":")[0] for w in tracker.covers(
+                dict(c, **{key: value}))][:1] == \
+                [w.split(":")[0] for w in moving.covers(
+                    dict(c, **{key: value}))][:1] != []
+    for key, value in [("use_derived_gradient", False),
+                       ("linear_solver", "pcg"), ("lm_schedule", "classic"),
+                       ("lm_hypotheses", 2)]:
+        c = dict(moving_cfg, solver=dict(moving_cfg["solver"],
+                                         **{key: value}))
+        assert [w.split(":")[0] for w in moving.covers(c)] == \
+            [f"solver.{key}"]
+    with pytest.raises(NotImplementedError):
+        tracker.LMProblem(dict(moving_cfg), None, None, None)
+    with pytest.raises(NotImplementedError):
+        moving.MovingProblem(dict(cfg), None, None, None)
+
+
+def test_moving_target_pixel_line_rule():
+    from benchmark.reference import moving
+
+    # A frame whose depth is a plane: corner (row y, column x) at depth
+    # 1 + x / 100, every normal valid.
+    h, w = 6, 8
+    ys, xs = torch.meshgrid(torch.arange(h, dtype=torch.float64),
+                            torch.arange(w, dtype=torch.float64),
+                            indexing="ij")
+    z = (1.0 + xs / 100).reshape(-1)
+    frame = {"points": torch.stack([torch.zeros_like(z),
+                                    torch.zeros_like(z), z]),
+             "norms": torch.stack([torch.zeros_like(z), torch.zeros_like(z),
+                                   -torch.ones_like(z)]),
+             "valid": torch.ones(h * w, dtype=torch.bool)}
+    cfg = {"height": h, "width": w, "_intr": (1.0, 1.0, 0.0, 0.0)}
+
+    def dz_du(u0):
+        u = torch.tensor([u0], dtype=torch.float64, requires_grad=True)
+        v = torch.tensor([2.5], dtype=torch.float64)
+        o, _, ok = moving.sample_moving(cfg, frame, u, v)
+        assert bool(ok[0])
+        (g,) = torch.autograd.grad(o[2].sum(), u)
+        return float(o[2].detach()), float(g)
+
+    # Inside a cell: the slope of the plane.
+    assert dz_du(3.25) == pytest.approx((1.0325, 0.01))
+    # On a line, and within float32 rounding of it: the rule's derivative,
+    # the sum of the two corners' values (z at 3 and 4), the value z at 3.
+    for u0 in (3.0, 3.0 + 1e-7, 3.0 - 1e-7):
+        z0, g = dz_du(u0)
+        assert z0 == pytest.approx(1.03, abs=1e-12)
+        assert g == pytest.approx(1.03 + 1.04)
+    # Past float32 rounding of the line: off it again.
+    assert dz_du(3.0 - 1e-5)[1] == pytest.approx(0.01)
+    x = torch.tensor([3.0 + 1e-7, 3.0 - 1e-7, 3.0 + 1e-5, 7.5],
+                     dtype=torch.float64)
+    assert moving.on_lines(x).tolist() == [3.0, 3.0, 3.0 + 1e-5, 7.5]
+
+
 def test_guard_compares_whole_top_level_names():
     assert guard.forbidden_modules(["super_tpu_torch", "super_tpu_torch.x",
                                     "jaxtyping", "flaxen.y"]) == []
